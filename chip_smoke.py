@@ -1,0 +1,418 @@
+"""Drives the PyTorch port's main path on one CUDA GPU and checks it.
+
+Run from the repository root on a machine with one CUDA GPU:
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure:
+  (a) build the Newton-root kernel from precondition_tpu_torch/csrc with nvcc;
+  (b) hold the kernel against its plain-PyTorch twin on the card at the
+      optimizer's shapes ([6144,128,128] p=4 and [32,128,128] p=2): cold,
+      warm (with garbage warm starts that must fall back to cold), mixed
+      padding, and an ill-conditioned batch that drives the retry ladder;
+      roots, ladder rounds and iterations are compared, the true residual
+      is checked in float64 on the host, and both are timed;
+  (c) five `distributed_shampoo` updates on the 58.7M-parameter
+      transformer-shaped tree of the JAX package's bench.py (4 layers,
+      d=1024, ff=4096, vocab 8192, block 128, RMSProp grafting), counting
+      kernel launches, plus the same optimizer on the GPU against its CPU
+      path on a small tree;
+  (d) `DistributedShampoo` training a width-1024 least-squares model;
+  (e) the card's name, power limit and TF32 setting.
+The line before the last is nvidia-smi's name and power limit, a line
+before it the kernels' JSON record, and the last line
+{"ok": true, "device": {...}}.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from precondition_tpu_torch.ops import pth_root
+from precondition_tpu_torch.ops.kernels import _build
+from precondition_tpu_torch.ops.kernels import newton_root
+from precondition_tpu_torch.optim import shampoo
+
+KERNEL_SOURCE = "precondition_tpu_torch/csrc/newton_root.cu"
+REPLACES = "precondition_tpu/ops/pallas/newton_root.py:148"
+# Tolerances of kernel against twin: the JAX package's own kernel test
+# (tests/test_pallas_kernels.py:59).  Both are f32 with sums in other orders.
+RTOL, ATOL = 1e-3, 1e-5
+# The JAX package's bench.py HYPERS, with its RMSProp grafting.
+HYPERS = dict(learning_rate=0.1, block_size=128, beta1=0.9, beta2=0.999,
+              matrix_epsilon=1e-6, start_preconditioning_step=0,
+              statistics_compute_steps=1,
+              graft_type=shampoo.GraftingType.RMSPROP)
+
+
+def check(ok, message):
+  if not ok:
+    raise RuntimeError(message)
+
+
+def log(*args):
+  print(*args, flush=True)
+
+
+def psd_batch(gen, n, m, device, ridge=0.1):
+  a = torch.randn(n, m, m, generator=gen, device=device)
+  eye = torch.eye(m, device=device)
+  return torch.bmm(a, a.transpose(1, 2)) / m + ridge * eye
+
+
+def zero_padding(stats, pads):
+  mask = pth_root._padding_mask(stats.shape[-1], pads, stats.dtype,
+                                stats.device)
+  return stats * mask[:, :, None] * mask[:, None, :]
+
+
+def residual_check(stats, pads, p, metrics, relative, floor=1e-3):
+  """Returns ``roots -> (residual, bound)``: per member max|H^p (A + r I) - I|
+  in float64 on the host, and the f32 bound 100 * eps * p * cond(A + r I)
+  (at least ``floor``), r the ridge of the ladder round that produced the
+  root.  Members of size 0 get an infinite bound."""
+  m = stats.shape[-1]
+  mask = pth_root._padding_mask(m, pads.cpu(), torch.float64)
+  eye = torch.diag_embed(mask)
+  scale = metrics.max_eigenvalue.double().cpu() if relative else 1.0
+  ridge = 1e-6 * scale * 10.0 ** torch.clamp(
+      metrics.retries.double().cpu() - 1.0, min=0.0)
+  d = stats.double().cpu() + ridge[:, None, None] * eye
+  # A diagonal entry lies inside the spectrum, so writing one on the
+  # padding diagonal leaves the valid corner's condition number unchanged.
+  ev = torch.linalg.eigvalsh(d + torch.diag_embed(1.0 - mask) * d[:, :1, :1])
+  cond = ev[:, -1] / ev[:, 0]
+  bound = torch.where(pads.cpu() > 0,
+                      torch.clamp(100 * 1.2e-7 * p * cond, min=floor),
+                      torch.inf)
+
+  def residual(roots):
+    hp = pth_root.mat_power(roots.double().cpu(), p)
+    return (hp @ d - eye).abs().amax(dim=(1, 2)), bound
+
+  return residual
+
+
+def cuda_ms(fn, reps):
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  for _ in range(reps):
+    fn()
+  end.record()
+  torch.cuda.synchronize()
+  return start.elapsed_time(end) / reps
+
+
+def compare(name, stats, p, pads=None, prevs=None, max_evs=None,
+            relative=True, elementwise=slice(None)):
+  """Kernel against twin on one batch; returns (max |roots diff| over the
+  ``elementwise`` members, kernel roots, kernel metrics).
+
+  Roots of the ``elementwise`` members are held to the twin's at RTOL and
+  ATOL; every member's true residual is held to its f32 bound.
+  A warm root is ``prev (z C (A + rI) C)^{-1/p}``, C = prev^{p/2}, which is
+  the true root only as far as prev commutes with A; the warm certificate
+  admits starts with |z C (A + rI) C - I| <= 0.05, so warm roots are held
+  to a true residual of 0.05 at most.
+  """
+  kw = dict(prevs=prevs, max_evs=max_evs, relative_matrix_epsilon=relative)
+  r_k, m_k = newton_root.batched_inverse_pth_root_cuda(stats, p, pads, **kw)
+  r_p, m_p = newton_root.batched_inverse_pth_root_plain(stats, p, pads, **kw)
+  torch.cuda.synchronize()
+  diff = (r_k[elementwise] - r_p[elementwise]).abs().max().item()
+  check(bool(torch.isfinite(r_k).all()), f"{name}: non-finite kernel roots")
+  check(torch.allclose(r_k[elementwise], r_p[elementwise], rtol=RTOL,
+                       atol=ATOL),
+        f"{name}: roots differ from the twin by up to {diff}")
+  check(torch.equal(m_k.retries, m_p.retries),
+        f"{name}: ladder rounds differ from the twin")
+  it_diff = (m_k.iterations - m_p.iterations).abs().max().item()
+  check(it_diff <= 1, f"{name}: iterations differ by {it_diff}")
+  if pads is None:
+    pads = torch.full((stats.shape[0],), stats.shape[-1], dtype=torch.int32)
+  residual = residual_check(stats, pads, p, m_k, relative,
+                            floor=1e-3 if prevs is None else 0.05)
+  for label, r in (("kernel", r_k), ("twin", r_p)):
+    resid, bound = residual(r)
+    worst = (resid / bound).max().item()
+    check(worst < 1.0, f"{name}: {label} true residual over its bound "
+          f"(max resid/bound {worst})")
+  log(f"  {name}: N={stats.shape[0]} m={stats.shape[-1]} p={p} "
+      f"max|kernel-twin|={diff:.3e} iterations mean "
+      f"{m_k.iterations.mean().item():.2f} max {m_k.iterations.max().item():.0f}"
+      f" (|diff| <= {it_diff:.0f}), retries max {m_k.retries.max().item():.0f}, "
+      f"error max {m_k.error.max().item():.3e}, "
+      f"f64 residual max {resid.max().item():.3e}")
+  return diff, r_k, m_k
+
+
+def phase_build():
+  log("(a) build")
+  start = time.perf_counter()
+  built = _build.build("newton_root")
+  log(f"  {KERNEL_SOURCE} -> {built.path.name}: nvcc "
+      f"{' '.join(_build.NVCC_FLAGS)} took {built.seconds:.1f} s "
+      f"({time.perf_counter() - start:.1f} s with the hash check)")
+  for line in built.log.splitlines():
+    if "registers" in line or "spill" in line:
+      log("  ptxas: " + line.strip())
+  return built.seconds
+
+
+def phase_kernel(device, n4=6144, n2=32, m=128, n_ill=512):
+  log("(b) kernel against its twin on the card")
+  gen = torch.Generator(device=device).manual_seed(0)
+  diffs = []
+  stats4 = psd_batch(gen, n4, m, device)
+  stats2 = psd_batch(gen, n2, m, device)
+  # The optimizer's power iteration supplies lambda_max on the main path.
+  ev4 = pth_root.power_iteration(stats4, error_tolerance=1e-2,
+                                 relative_tolerance=True)[1]
+  ev2 = pth_root.power_iteration(stats2, error_tolerance=1e-2,
+                                 relative_tolerance=True)[1]
+  d, cold4, _ = compare("cold p=4", stats4, 4, max_evs=ev4)
+  diffs.append(d)
+  d, cold2, _ = compare("cold p=2", stats2, 2, max_evs=ev2)
+  diffs.append(d)
+
+  # Warm: the statistics drift by 0.1%, the previous roots start the
+  # solve; the first g members get a garbage previous root, which the
+  # warm certificate must reject, falling back to the cold solve.
+  for p, stats, cold, n in ((4, stats4, cold4, n4), (2, stats2, cold2, n2)):
+    g = min(16, n // 2)
+    drifted = 0.999 * stats + 0.001 * psd_batch(gen, n, m, device)
+    prevs = cold.clone()
+    prevs[:g] = 100.0 * torch.randn(g, m, m, generator=gen, device=device)
+    ev = pth_root.power_iteration(drifted, error_tolerance=1e-2,
+                                  relative_tolerance=True)[1]
+    d, warm_roots, warm_met = compare(f"warm p={p}", drifted, p, prevs=prevs,
+                                      max_evs=ev)
+    diffs.append(d)
+    cold_roots, cold_met = newton_root.batched_inverse_pth_root_cuda(
+        drifted, p, max_evs=ev)
+    check(torch.allclose(warm_roots[:g], cold_roots[:g], rtol=RTOL,
+                         atol=ATOL),
+          f"warm p={p}: garbage warm starts did not fall back to cold")
+    check(bool(warm_met.iterations[g:].mean()
+               < cold_met.iterations[g:].mean()),
+          f"warm p={p}: warm starts took no fewer iterations than cold")
+    log(f"  warm p={p}: iterations mean {warm_met.iterations[g:].mean():.2f}"
+        f" warm vs {cold_met.iterations[g:].mean():.2f} cold; the {g} "
+        "garbage warm starts equal the cold solve")
+
+  # Mixed padding_starts, including 0 (a pure-padding member).
+  sizes = torch.tensor([m, 3 * m // 4, m // 2, m // 8 + 1, 1, 0],
+                       dtype=torch.int32, device=device)
+  pads = sizes.repeat(n4 // len(sizes) + 1)[:n4].contiguous()
+  padded = zero_padding(stats4, pads)
+  ev = pth_root.power_iteration(padded, padding_starts=pads,
+                                error_tolerance=1e-2,
+                                relative_tolerance=True)[1]
+  d, roots, met = compare("padded p=4", padded, 4, pads=pads, max_evs=ev)
+  diffs.append(d)
+  zero = pads == 0
+  check(bool((roots[zero] == 0).all()) and bool((met.error[zero] == 0).all()),
+        "padded p=4: a pure-padding member is not all zeros")
+
+  # Ill-conditioned, absolute ridge 1e-6 (relative_matrix_epsilon=False),
+  # as the JAX package's ladder test builds it: healthy members beside
+  # ill-conditioned ones.  A quarter are healthy; 3/8 have cond 1e6
+  # (spectrum 1e3 .. 1e-3); 3/8 are rank-m/8 Grams with eigenvalues 3e4,
+  # whose solve fails while cond(A + rI) >= 3e7 and converges from 3e6 on
+  # (the fifth round): the ladder escalates, and its rounds sit a factor 3
+  # from f32's edge near 1e7 on either side, so kernel and twin take the
+  # same rounds.  Two f32 solves at cond >= 1e6 agree only to rounding
+  # amplified by the conditioning (0.11 apart at most on roots of spectral
+  # norm 5.6, on an H100 80GB HBM3 at 700 W), so, as in the JAX package's `test_retry_ladder_ill_conditioned`,
+  # only the healthy members' roots are held to the twin's; the others are
+  # held to their f64 true residual bound, ladder rounds and iterations.
+  n_ok, n_cond = n_ill // 4, 3 * n_ill // 8
+  q, _ = torch.linalg.qr(torch.randn(n_ill, m, m, generator=gen,
+                                     device=device, dtype=torch.float64))
+  spectrum = torch.zeros(n_ill, m, dtype=torch.float64, device=device)
+  spectrum[n_ok:n_ok + n_cond] = 1e3 * torch.logspace(
+      0, -6, m, device=device, dtype=torch.float64)
+  spectrum[n_ok + n_cond:, :m // 8] = 3e4
+  ill = ((q * spectrum[:, None, :]) @ q.transpose(1, 2)).float()
+  ill[:n_ok] = psd_batch(gen, n_ok, m, device)
+  d, _, met = compare("ill-conditioned p=4", ill.contiguous(), 4,
+                      relative=False, elementwise=slice(0, n_ok))
+  diffs.append(d)
+  check(bool((met.retries[:n_ok] == 1).all()),
+        "ill-conditioned p=4: a healthy member escalated its ridge")
+  check(bool((met.retries[n_ok + n_cond:] > 1).all()),
+        "ill-conditioned p=4: the ladder did not escalate")
+  check(bool((met.error < 0.05).all()),
+        "ill-conditioned p=4: a member did not converge within the ladder")
+
+  timings = {}
+  for name, stats, p, ev in (("[6144,128,128] p=4", stats4, 4, ev4),
+                             ("[32,128,128] p=2", stats2, 2, ev2)):
+    run_k = lambda: newton_root.batched_inverse_pth_root_cuda(
+        stats, p, max_evs=ev)
+    run_p = lambda: newton_root.batched_inverse_pth_root_plain(
+        stats, p, max_evs=ev)
+    run_k(), run_p()
+    # Plain, kernel, kernel, plain on one card.
+    t_p = [cuda_ms(run_p, 3)]
+    t_k = [cuda_ms(run_k, 3), cuda_ms(run_k, 3)]
+    t_p.append(cuda_ms(run_p, 3))
+    timings[name] = (float(np.mean(t_k)), float(np.mean(t_p)))
+    log(f"  time {name} cold: kernel {t_k} ms, twin {t_p} ms")
+  return max(diffs), timings
+
+
+def bench_tree_shapes(d=1024, ff=4096, vocab=8192, layers=4):
+  """The parameter shapes of the JAX package's bench.py `_param_tree`."""
+  shapes = {"embed": (vocab, d)}
+  for i in range(layers):
+    shapes.update({f"blk{i}/qkv": (d, 3 * d), f"blk{i}/out": (d, d),
+                   f"blk{i}/ffn_in": (d, ff), f"blk{i}/ffn_out": (ff, d),
+                   f"blk{i}/norm": (d,)})
+  return shapes
+
+
+def small_tree_check(device):
+  """The same optimizer on the GPU (kernel) and on the CPU (twin) from
+  the same small inputs: 3 updates must agree."""
+  shapes = {"w": (256, 384), "v": (128, 128), "norm": (256,)}
+  gen = torch.Generator().manual_seed(1)
+  params = {n: 0.1 * torch.randn(s, generator=gen) for n, s in shapes.items()}
+  grads = [{n: 0.1 * torch.randn(s, generator=gen) for n, s in shapes.items()}
+           for _ in range(3)]
+  out = {}
+  for dev in ("cpu", device):
+    opt = shampoo.distributed_shampoo(**HYPERS)
+    p = {n: x.to(dev) for n, x in params.items()}
+    state = opt.init(p)
+    for g in grads:
+      upd, state = opt.update({n: x.to(dev) for n, x in g.items()}, state, p)
+      p = {n: p[n] + upd[n] for n in p}
+    out[dev] = p
+  worst = 0.0
+  for n in shapes:
+    got, ref = out[device][n].cpu(), out["cpu"][n]
+    worst = max(worst, (got - ref).abs().max().item())
+    check(torch.allclose(got, ref, rtol=1e-3, atol=1e-4 * ref.abs().max()),
+          f"small tree: GPU and CPU paths disagree on {n}")
+  log(f"  small tree, 3 updates: GPU (kernel) against CPU (twin) max |diff| "
+      f"{worst:.3e}")
+
+
+def phase_main_path(device, steps=5, **tree):
+  log("(c) main path: distributed_shampoo on the bench fixture")
+  small_tree_check(device)
+  gen = torch.Generator(device=device).manual_seed(0)
+  shapes = bench_tree_shapes(**tree)
+  params = {n: 0.02 * torch.randn(s, generator=gen, device=device)
+            for n, s in shapes.items()}
+  n_params = sum(p.numel() for p in params.values())
+  opt = shampoo.distributed_shampoo(**HYPERS)
+  state = opt.init(params)
+  census = {}
+  for name, ps in state.stats.items():
+    p = 2 * len(ps.statistics)
+    for s in ps.statistics:
+      census[p] = census.get(p, 0) + s.shape[0]
+  log(f"  {n_params / 1e6:.1f}M parameters; statistics per exponent "
+      f"{dict(sorted(census.items()))} of size "
+      f"[{HYPERS['block_size']},{HYPERS['block_size']}]")
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats(device)
+  times = []
+  newton_root.LAUNCHES = 0
+  for step in range(steps):
+    grads = {n: 0.01 * torch.randn(s, generator=gen, device=device)
+             for n, s in shapes.items()}
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    updates, state = opt.update(grads, state, params)
+    torch.cuda.synchronize()
+    times.append(time.perf_counter() - start)
+    launches = newton_root.LAUNCHES
+    check(launches == 2 * (step + 1),
+          f"step {step}: {launches} kernel launches, expected "
+          f"{2 * (step + 1)}")
+    for n, u in updates.items():
+      check(u.shape == params[n].shape and bool(torch.isfinite(u).all()),
+            f"step {step}: update of {n} is not finite or has a wrong shape")
+      params[n] += u
+    errors = torch.cat([ps.training_metrics.error
+                        for ps in state.stats.values()])
+    check(not bool(torch.isnan(errors).any())
+          and errors.max().item() < 0.1,  # inverse_failure_threshold
+          f"step {step}: the failure gate rejected roots (max error "
+          f"{errors.max().item()})")
+  launches = newton_root.LAUNCHES
+  peak = torch.cuda.max_memory_allocated(device)
+  median_ms = 1e3 * float(np.median(times[1:]))
+  log(f"  {steps} steps: kernel launches {launches}; step times "
+      f"{[round(1e3 * t, 3) for t in times]} ms; median after step 1 "
+      f"{median_ms:.3f} ms; peak memory {peak / 2**30:.3f} GiB; "
+      f"max root error {errors.max().item():.3e}")
+  return launches, median_ms, peak
+
+
+def phase_trainer(device, width=1024, rows=4096, steps=20):
+  log("(d) DistributedShampoo on least squares")
+  gen = torch.Generator(device=device).manual_seed(2)
+  x = torch.randn(rows, width, generator=gen, device=device)
+  target = torch.randn(width, width, generator=gen, device=device)
+  y = x @ target / width ** 0.5
+  w = torch.zeros(width, width, device=device, requires_grad=True)
+  b = torch.zeros(width, device=device, requires_grad=True)
+  opt = shampoo.DistributedShampoo(
+      [w, b], lr=1e-3, block_size=128, start_preconditioning_step=1,
+      graft_type=shampoo.GraftingType.RMSPROP)
+  losses = []
+  for _ in range(steps):
+    opt.zero_grad()
+    loss = ((x @ w + b - y) ** 2).mean()
+    loss.backward()
+    opt.step()
+    losses.append(loss.item())
+  log(f"  width {width}, {steps} steps: loss {losses[0]:.4f} -> "
+      f"{losses[-1]:.4f}")
+  check(all(np.isfinite(losses)) and losses[-1] < 0.5 * losses[0],
+        f"least-squares loss did not fall: {losses}")
+
+
+def main():
+  if not torch.cuda.is_available():
+    raise SystemExit("chip_smoke.py needs a CUDA GPU: "
+                     "torch.cuda.is_available() is False")
+  device = torch.device("cuda", 0)
+  pth_root.require_true_f32()
+  build_s = phase_build()
+  max_err, timings = phase_kernel(device)
+  launches, step_ms, peak = phase_main_path(device)
+  phase_trainer(device)
+  log("(e) card")
+  tf32 = torch.backends.cuda.matmul.allow_tf32
+  check(not tf32, "TF32 matmuls are on")
+  log(f"  torch.backends.cuda.matmul.allow_tf32={tf32}; torch "
+      f"{torch.__version__}, CUDA {torch.version.cuda}")
+  smi = subprocess.run(
+      ["nvidia-smi", "--query-gpu=name,power.limit",
+       "--format=csv,noheader"], capture_output=True, text=True, check=True,
+      timeout=60).stdout.strip().splitlines()[0]
+  kernel_ms, plain_ms = timings["[6144,128,128] p=4"]
+  log(json.dumps({"main_path": {"build_s": build_s, "step_ms": step_ms,
+                                "peak_bytes": peak}}))
+  log(json.dumps({"kernels": [{
+      "name": "newton_root", "route": "cuda", "source": KERNEL_SOURCE,
+      "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
+      "ms": kernel_ms, "plain_ms": plain_ms}]}))
+  log(smi)
+  print(json.dumps({"ok": True, "device": {
+      "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+      "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+  sys.exit(main())

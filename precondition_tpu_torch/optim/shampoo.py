@@ -1,0 +1,583 @@
+"""Distributed Shampoo on one device, in PyTorch.
+
+Port of the default, single-device mode of
+`precondition_tpu/optim/shampoo.py` with its per-axis stacked statistics
+layout.  For each parameter block ``G`` the optimizer keeps Kronecker-factor
+statistics per axis and preconditions with their inverse ``2k``-th roots,
+``k`` the number of preconditioned axes.  One update has three phases:
+
+1. statistics: the EMA of batched Gram products, one `torch.bmm` per
+   preconditioned axis on ``[nb, d, d]`` stacks;
+2. root solve: statistics gathered into one ``[N, m, m]`` batch per
+   exponent, one batched power iteration for the ridge's lambda_max, the
+   coupled-Newton solve (`ops/kernels/newton_root.py`: the CUDA kernel for
+   a CUDA tensor, its plain twin on the CPU) and a failure gate that keeps
+   the old root where a solve failed;
+3. transform: grafting, the per-axis preconditioning contraction, the
+   graft-norm rescale, momentum and Nesterov.
+
+`distributed_shampoo` returns the functional ``init``/``update`` pair with
+the JAX signature; `DistributedShampoo` wraps it as a
+`torch.optim.Optimizer`.  Parameters are a flat dict of name -> tensor
+(`utils.convert.params_from_numpy` flattens a JAX tree into one).
+Options the port does not have yet raise `NotImplementedError` naming the
+ROADMAP.md item that will port them.  Frequency gates are host-side ``if``s
+on the step count.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import functools
+from typing import (Callable, Dict, List, Mapping, NamedTuple, Optional,
+                    Tuple, Union)
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from precondition_tpu_torch.ops import pth_root
+from precondition_tpu_torch.ops.kernels import newton_root
+from precondition_tpu_torch.ops.pth_root import RootMetrics
+from precondition_tpu_torch.utils import shapes as shape_utils
+
+_EPSILON = 1e-25
+
+
+class GraftingType(enum.IntEnum):
+  """Which first-order method supplies the per-layer step size."""
+  NONE = 0
+  SGD = 1
+  ADAGRAD = 2
+  RMSPROP = 3
+  RMSPROP_NORMALIZED = 4
+  SQRT_N = 5
+  ADAGRAD_NORMALIZED = 6
+
+
+class PreconditionerType(enum.IntEnum):
+  """Which axes get Kronecker factors."""
+  ALL = 1
+  INPUT = 2   # one-sided: all but the last (output) dim
+  OUTPUT = 3  # one-sided: only the last dim
+
+
+@dataclasses.dataclass
+class ParameterStats:
+  """Per-parameter Shampoo state (stacked layout)."""
+  diagonal_statistics: Optional[torch.Tensor]  # grafting accumulator
+  statistics: List[torch.Tensor]       # per preconditioned axis [nb, d, d]
+  preconditioners: List[torch.Tensor]  # matching inverse roots
+  diagonal_momentum: torch.Tensor      # momentum of the grafting direction
+  momentum: torch.Tensor               # momentum of the preconditioned one
+  training_metrics: Optional[RootMetrics]  # [num_statistics] fields
+
+
+@dataclasses.dataclass
+class ShampooState:
+  count: int
+  stats: Dict[str, ParameterStats]
+
+
+class GradientTransformation(NamedTuple):
+  init: Callable[[Mapping[str, torch.Tensor]], ShampooState]
+  update: Callable[..., Tuple[Dict[str, torch.Tensor], ShampooState]]
+
+
+class _SolveChunk(NamedTuple):
+  """One ``[k, d, d]`` statistics stack inside an exponent's solve batch."""
+  name: str    # parameter
+  slot: int    # preconditioned axis of that parameter
+  k: int       # number of matrices
+  d: int       # (unpadded) matrix size
+  exp: int     # root exponent
+  start: int   # first global statistic index
+
+
+def _not_ported(option: str, item: str):
+  return NotImplementedError(
+      f"{option} is not ported to PyTorch yet; see ROADMAP.md queue 1, "
+      f"item {item}")
+
+
+@functools.lru_cache(maxsize=None)
+def _block_plan(shape, block_size, merge_block_size, best_effort,
+                precond_type):
+  """Static per-shape plan: merged shape, partitioner, preconditioned axes."""
+  transformed = (list(shape) if not best_effort
+                 else shape_utils.merge_small_dims(shape, merge_block_size))
+  partitioner = shape_utils.BlockPartitioner(transformed, block_size)
+  rank = len(partitioner.split_sizes())
+  if precond_type == PreconditionerType.ALL or rank <= 1:
+    precond_dims = [True] * rank
+  elif precond_type == PreconditionerType.INPUT:
+    precond_dims = [True] * (rank - 1) + [False]
+  else:  # OUTPUT
+    precond_dims = [False] * (rank - 1) + [True]
+  return transformed, partitioner, precond_dims
+
+
+class Preconditioner:
+  """Per-parameter blocked Kronecker-factor engine (stacked layout)."""
+
+  def __init__(self, param, block_size, merge_small_dims_block_size,
+               best_effort_shape_interpretation,
+               preconditioner_type=PreconditionerType.ALL):
+    self._original_shape = tuple(param.shape)
+    self._transformed_shape, self._partitioner, self._precond_dims = (
+        _block_plan(self._original_shape, block_size,
+                    merge_small_dims_block_size,
+                    bool(best_effort_shape_interpretation),
+                    PreconditionerType(preconditioner_type)))
+
+  def exponent_for_preconditioner(self) -> int:
+    # root exponent p = 2 * number of Kronecker-factored axes.
+    return 2 * sum(self._precond_dims)
+
+  def stacked_layout(self) -> bool:
+    """Whether the blocks are uniform (no ragged trailing block)."""
+    return self._partitioner.uniform_block_shape() is not None
+
+  def stacked_shapes(self) -> List[tuple]:
+    """Per preconditioned axis: ``(num_blocks, d, d)`` stack shapes."""
+    block = self._partitioner.uniform_block_shape()
+    nb = self._partitioner.num_blocks()
+    return [(nb, block[a], block[a])
+            for a, on in enumerate(self._precond_dims) if on]
+
+  def updated_statistics_stacked(self, stats, grad, w1, w2
+                                 ) -> List[torch.Tensor]:
+    """EMA ``w1 * S + w2 * G_(a) G_(a)^T`` on the per-axis stacks."""
+    reshaped = grad.reshape(self._transformed_shape)
+    uniform = self._partitioner.uniform_block_shape()
+    gs_all = self._partitioner.partition_stacked(reshaped)
+    nb = gs_all.shape[0]
+    new_stats = []
+    slot = 0
+    for axis, on in enumerate(self._precond_dims):
+      if not on:
+        continue
+      flat = gs_all.movedim(axis + 1, 1).reshape(nb, uniform[axis], -1)
+      grams = torch.bmm(flat, flat.transpose(1, 2))
+      new_stats.append(w1 * stats[slot] + w2 * grams)
+      slot += 1
+    return new_stats
+
+  def preconditioned_grad_stacked(self, grad, preconditioners
+                                  ) -> torch.Tensor:
+    """Apply per-axis stacked roots ``[nb, d, d]`` to the gradient."""
+    reshaped = grad.reshape(self._transformed_shape)
+    g = self._partitioner.partition_stacked(reshaped)
+    slot = 0
+    for on in self._precond_dims:
+      if not on:
+        g = g.movedim(1, -1)
+        continue
+      g = torch.einsum("bi...,bij->b...j", g, preconditioners[slot])
+      slot += 1
+    merged = self._partitioner.merge_stacked(g)
+    return merged.reshape(self._original_shape)
+
+
+def distributed_shampoo(
+    learning_rate: Union[float, Callable[[int], float]],
+    block_size: int = 1024,
+    beta1: float = 0.9,
+    beta2: float = 0.999,
+    diagonal_epsilon: float = 1e-10,
+    matrix_epsilon: float = 1e-6,
+    weight_decay: float = 0.0,
+    start_preconditioning_step: int = 5,
+    preconditioning_compute_steps: int = 1,
+    statistics_compute_steps: int = 1,
+    best_effort_shape_interpretation: bool = True,
+    graft_type: GraftingType = GraftingType.SGD,
+    nesterov: bool = True,
+    exponent_override: int = 0,
+    batch_axis_name: Optional[str] = None,
+    statistics_partition_spec=None,
+    preconditioner_partition_spec=None,
+    num_devices_for_pjit: Optional[int] = None,
+    inverse_failure_threshold: float = 0.1,
+    moving_average_for_momentum: bool = False,
+    skip_preconditioning_dim_size_gt: int = 4096,
+    clip_by_scaled_gradient_norm: Optional[float] = None,
+    precision=None,
+    tensordot_precision=None,
+    relative_matrix_epsilon: bool = True,
+    merge_small_dims_block_size: int = 4096,
+    lobpcg_topk_precondition: int = 0,
+    lobpcg_max_iter: int = 0,
+    precondtioner_type: PreconditionerType = PreconditionerType.ALL,
+    skip_preconditioning_rank_lt: int = 1,
+    decoupled_learning_rate: bool = True,
+    decoupled_weight_decay: bool = False,
+    generate_training_metrics: bool = True,
+    generate_detailed_metrics: bool = False,
+    generate_fd_metrics: bool = False,
+    reuse_preconditioner: bool = False,
+    delayed_preconditioning: bool = False,
+    eigh: bool = False,
+    decay_preconditioning_compute_steps: bool = False,
+    end_preconditioning_compute_steps: Optional[int] = None,
+    shard_optimizer_states: bool = False,
+    solver_backend: str = "auto",
+    compression_rank: int = 0,
+    frequent_directions: bool = False,
+    reset_preconditioner: bool = False,
+    average_grad: bool = False,
+    best_effort_memory_usage_reduction: bool = False,
+) -> GradientTransformation:
+  """Builds the distributed Shampoo optimizer.
+
+  Arguments carry the JAX package's names and defaults.  ``precision`` and
+  ``tensordot_precision`` must stay None: every product runs in true f32
+  (TF32 is switched off), which is the JAX package's HIGHEST.  The
+  ``lobpcg_max_iter`` and ``end_preconditioning_compute_steps`` values
+  only matter with the options they qualify, which raise.
+  """
+  del lobpcg_max_iter, end_preconditioning_compute_steps
+  unported = [
+      (batch_axis_name is not None, "batch_axis_name", "8 (distribution)"),
+      (statistics_partition_spec is not None
+       or preconditioner_partition_spec is not None,
+       "statistics/preconditioner partition specs", "8 (distribution)"),
+      (num_devices_for_pjit not in (None, 1), "num_devices_for_pjit",
+       "8 (distribution)"),
+      (shard_optimizer_states, "shard_optimizer_states", "8 (distribution)"),
+      (compression_rank != 0 or frequent_directions or reset_preconditioner
+       or average_grad, "compression and frequent directions",
+       "9 (low-rank and FD roots)"),
+      (best_effort_memory_usage_reduction,
+       "best_effort_memory_usage_reduction", "7 (quantized state)"),
+      (generate_detailed_metrics or generate_fd_metrics,
+       "detailed and FD metrics", "7 (diagnostics)"),
+      (eigh, "eigh", "5a (rest of the default mode)"),
+      (lobpcg_topk_precondition != 0, "LOBPCG deflation",
+       "11 (LOBPCG)"),
+      (decay_preconditioning_compute_steps,
+       "decay_preconditioning_compute_steps",
+       "5a (rest of the default mode)"),
+      (solver_backend != "auto", f"solver_backend={solver_backend!r}",
+       "5a (rest of the default mode)"),
+      (precision is not None or tensordot_precision is not None,
+       "precision options (products always run in true f32)",
+       "5a (rest of the default mode)"),
+  ]
+  for flag, option, item in unported:
+    if flag:
+      raise _not_ported(option, item)
+  if clip_by_scaled_gradient_norm is not None and graft_type not in (
+      GraftingType.RMSPROP, GraftingType.RMSPROP_NORMALIZED):
+    raise ValueError(
+        "clip_by_scaled_gradient_norm only applies to RMSProp grafting.")
+
+  graft_has_diag_stats = graft_type in (
+      GraftingType.ADAGRAD, GraftingType.RMSPROP,
+      GraftingType.RMSPROP_NORMALIZED, GraftingType.ADAGRAD_NORMALIZED)
+  w2_ema = beta2 if beta2 == 1.0 else 1.0 - beta2
+
+  def preconditioner_from_params(param) -> Preconditioner:
+    return Preconditioner(param, block_size, merge_small_dims_block_size,
+                          best_effort_shape_interpretation,
+                          precondtioner_type)
+
+  def _skip_preconditioning(param) -> bool:
+    return (param.dim() < skip_preconditioning_rank_lt or
+            any(s > skip_preconditioning_dim_size_gt for s in param.shape))
+
+  # --------------------------------------------------------------- init --
+  def init_fn(params: Mapping[str, torch.Tensor]) -> ShampooState:
+    stats = {}
+    for name, param in params.items():
+      statistics, preconditioners = [], []
+      num_stats = 0
+      if not _skip_preconditioning(param):
+        pre = preconditioner_from_params(param)
+        if not pre.stacked_layout():
+          raise _not_ported(
+              f"parameter {name!r} of shape {tuple(param.shape)} has ragged "
+              f"blocks at block_size={block_size}; the per-block layout",
+              "5a (rest of the default mode)")
+        for (nb, d, _) in pre.stacked_shapes():
+          eye = torch.eye(d, dtype=torch.float32, device=param.device)
+          statistics.append(matrix_epsilon * eye.expand(nb, d, d).clone())
+          preconditioners.append(eye.expand(nb, d, d).clone())
+          num_stats += nb
+      metrics = None
+      if generate_training_metrics:
+        metrics = RootMetrics(*torch.zeros(
+            (5, num_stats), dtype=torch.float32, device=param.device))
+      stats[name] = ParameterStats(
+          diagonal_statistics=(torch.zeros_like(param)
+                               if graft_has_diag_stats else None),
+          statistics=statistics,
+          preconditioners=preconditioners,
+          diagonal_momentum=torch.zeros_like(param),
+          momentum=torch.zeros_like(param),
+          training_metrics=metrics)
+    return ShampooState(count=0, stats=stats)
+
+  # --------------------------------------------------- statistics update --
+  def _update_statistics(grad, state: ParameterStats, param, step):
+    if (_skip_preconditioning(param)
+        or step % statistics_compute_steps != 0):
+      return state
+    pre = preconditioner_from_params(param)
+    return dataclasses.replace(state, statistics=pre.updated_statistics_stacked(
+        state.statistics, grad, w1=beta2, w2=w2_ema))
+
+  # ------------------------------------------------- preconditioner solve --
+  def _solve_batched(stacked, exp, pads, prevs=None):
+    """Power iteration for the ridge, then the coupled-Newton solve.
+
+    The top eigenvalues come from one batched power iteration over the
+    whole group with a loose 1% relative exit: the estimate only scales
+    the relative ridge, power iteration converges from below, and the
+    retry ladder and the failure gate guard the rare member that needs a
+    larger ridge.
+    """
+    max_evs = None
+    if relative_matrix_epsilon:
+      max_evs = pth_root.power_iteration(
+          stacked, padding_starts=pads, error_tolerance=1e-2,
+          relative_tolerance=True)[1]
+    return newton_root.batched_inverse_pth_root(
+        stacked, exp, pads, prevs=prevs, max_evs=max_evs,
+        ridge_epsilon=matrix_epsilon,
+        relative_matrix_epsilon=relative_matrix_epsilon)
+
+  def _update_preconditioners(states: Dict[str, ParameterStats], params,
+                              step) -> Dict[str, ParameterStats]:
+    """Solve inverse roots for every statistic across all params at once.
+
+    Statistics are gathered into one ``[N, m, m]`` batch per exponent,
+    each param contributing whole ``[nb, d, d]`` stacks padded with an
+    identity block to the largest ``d``.  Metrics come back in the global
+    statistic order: parameter by parameter, axis-major within each.
+    """
+    if step % preconditioning_compute_steps != 0:
+      return states
+    chunks: List[_SolveChunk] = []
+    spans = {}  # name -> (first global index, count, chunk ids)
+    stat_index = 0
+    for name, state in states.items():
+      first, ids = stat_index, []
+      if state.statistics:
+        pre = preconditioner_from_params(params[name])
+        exp = (pre.exponent_for_preconditioner()
+               if exponent_override == 0 else exponent_override)
+        for slot, s in enumerate(state.statistics):
+          ids.append(len(chunks))
+          chunks.append(_SolveChunk(name, slot, int(s.shape[0]),
+                                    int(s.shape[-1]), exp, stat_index))
+          stat_index += int(s.shape[0])
+      spans[name] = (first, stat_index - first, ids)
+    if stat_index == 0:
+      return states
+
+    max_size = max(c.d for c in chunks)
+    groups: Dict[int, List[int]] = {}
+    for ci, c in enumerate(chunks):
+      groups.setdefault(c.exp, []).append(ci)
+
+    fresh = [None] * len(chunks)
+    group_metrics, order = [], []
+    for exp, cids in sorted(groups.items()):
+      cs = [chunks[ci] for ci in cids]
+      grp = torch.cat([shape_utils.pad_square_stack(
+          states[c.name].statistics[c.slot], max_size) for c in cs])
+      pads = torch.cat([torch.full((c.k,), c.d, dtype=torch.int32,
+                                   device=grp.device) for c in cs])
+      prevs = None
+      if reuse_preconditioner:
+        # Warm-start from the previous accepted roots; the solver certifies
+        # each warm start and falls back to the cold ladder on its own.
+        prevs = torch.cat([shape_utils.pad_square_stack(
+            states[c.name].preconditioners[c.slot], max_size) for c in cs])
+      roots, metrics = _solve_batched(grp, exp, pads, prevs)
+      off = 0
+      for ci, c in zip(cids, cs):
+        fresh[ci] = roots[off:off + c.k]
+        off += c.k
+        order.extend(range(c.start, c.start + c.k))
+      group_metrics.append(metrics)
+    inv = torch.from_numpy(np.argsort(np.asarray(order))).to(grp.device)
+    all_metrics = RootMetrics.cat(group_metrics).map(lambda x: x[inv])
+    errors = all_metrics.error
+    failed = torch.isnan(errors) | (errors >= inverse_failure_threshold)
+
+    new_states = {}
+    for name, state in states.items():
+      first, count, ids = spans[name]
+      if count == 0:
+        new_states[name] = state
+        continue
+      new_pre = list(state.preconditioners)
+      for ci in ids:
+        c = chunks[ci]
+        gate = failed[c.start:c.start + c.k]
+        new_pre[c.slot] = torch.where(gate[:, None, None],
+                                      state.preconditioners[c.slot],
+                                      fresh[ci][:, :c.d, :c.d])
+      metrics = None
+      if generate_training_metrics:
+        metrics = all_metrics.map(lambda x, a=first, b=first + count: x[a:b])
+      new_states[name] = dataclasses.replace(
+          state, preconditioners=new_pre, training_metrics=metrics)
+    return new_states
+
+  # ------------------------------------------------------ grad transform --
+  def _transform_grad(grad, state: ParameterStats, param, step):
+    norm = torch.linalg.vector_norm
+    new_diag_stats = state.diagonal_statistics
+    if graft_type in (GraftingType.ADAGRAD, GraftingType.ADAGRAD_NORMALIZED):
+      scaled_grad = grad
+      if graft_type == GraftingType.ADAGRAD_NORMALIZED:
+        scaled_grad = grad / (norm(grad) + _EPSILON)
+      new_diag_stats = state.diagonal_statistics + torch.square(scaled_grad)
+      grafting_update = scaled_grad / (
+          torch.sqrt(new_diag_stats) + diagonal_epsilon)
+    elif graft_type in (GraftingType.RMSPROP, GraftingType.RMSPROP_NORMALIZED):
+      scaled_grad = grad
+      if graft_type == GraftingType.RMSPROP_NORMALIZED:
+        scaled_grad = grad / (norm(grad) + _EPSILON)
+      new_diag_stats = (beta2 * state.diagonal_statistics
+                        + w2_ema * torch.square(scaled_grad))
+      grafting_update = scaled_grad / (
+          torch.sqrt(new_diag_stats) + diagonal_epsilon)
+      if clip_by_scaled_gradient_norm:
+        scaled_norm = (norm(grafting_update) /
+                       np.sqrt(float(grafting_update.numel())))
+        denom = torch.clamp(scaled_norm / clip_by_scaled_gradient_norm,
+                            min=1.0)
+        grafting_update = grafting_update / denom
+    elif graft_type in (GraftingType.SGD, GraftingType.NONE):
+      grafting_update = grad
+    else:  # SQRT_N: sign(g), norm sqrt(size)
+      grafting_update = torch.sign(grad)
+
+    lr = learning_rate(step) if callable(learning_rate) else learning_rate
+    precond_multiplier = lr if not decoupled_learning_rate else 1.0
+    grafting_update = grafting_update * precond_multiplier
+
+    if not _skip_preconditioning(param):
+      pre = preconditioner_from_params(param)
+      precond_grad = pre.preconditioned_grad_stacked(
+          grad, state.preconditioners)
+    else:
+      precond_grad = grafting_update
+
+    if graft_type != GraftingType.NONE:
+      multiplier = norm(grafting_update) / (norm(precond_grad) + _EPSILON)
+    else:
+      multiplier = 1.0
+    shampoo_update = precond_grad * multiplier
+
+    shampoo_wd = shampoo_update
+    graft_wd = grafting_update
+    if weight_decay != 0 and not decoupled_weight_decay:
+      shampoo_wd = shampoo_update + weight_decay * param
+      graft_wd = grafting_update + weight_decay * param
+
+    w = (1.0 - beta1) if moving_average_for_momentum else 1.0
+    shampoo_mom = state.momentum * beta1 + w * shampoo_wd
+    graft_mom = state.diagonal_momentum * beta1 + w * graft_wd
+
+    run_shampoo = step >= start_preconditioning_step
+    momentum_update = shampoo_mom if run_shampoo else graft_mom
+    wd_update = shampoo_wd if run_shampoo else graft_wd
+
+    if nesterov:
+      momentum_out = w * wd_update + beta1 * momentum_update
+    else:
+      momentum_out = momentum_update
+
+    if weight_decay != 0 and decoupled_weight_decay:
+      wd_lr = 1.0 if decoupled_learning_rate else lr
+      momentum_out = momentum_out + wd_lr * weight_decay * param
+
+    momentum_multiplier = lr if decoupled_learning_rate else 1.0
+    transformed = -1.0 * momentum_multiplier * momentum_out
+
+    new_state = dataclasses.replace(
+        state, diagonal_statistics=new_diag_stats,
+        diagonal_momentum=graft_mom, momentum=shampoo_mom)
+    return transformed, new_state
+
+  # ------------------------------------------------------------- update --
+  @torch.no_grad()
+  def update_fn(grads: Mapping[str, torch.Tensor], state: ShampooState,
+                params: Mapping[str, torch.Tensor]):
+    pth_root.require_true_f32()
+    step = state.count
+    stats = state.stats
+    # The profiler scopes carry the JAX package's named-scope names.
+    statistics_scope = record_function("ShampooStatistics")
+    solve_scope = record_function("ShampooRootSolve")
+    if delayed_preconditioning:
+      # Solve from the carried statistics (through step t-1): the roots
+      # applied at step t lag one statistics update.
+      with solve_scope:
+        solved = _update_preconditioners(stats, params, step)
+      with statistics_scope:
+        new_stats = {
+            n: dataclasses.replace(
+                _update_statistics(grads[n], s, params[n], step),
+                preconditioners=solved[n].preconditioners,
+                training_metrics=solved[n].training_metrics)
+            for n, s in stats.items()}
+    else:
+      with statistics_scope:
+        new_stats = {n: _update_statistics(grads[n], s, params[n], step)
+                     for n, s in stats.items()}
+      with solve_scope:
+        new_stats = _update_preconditioners(new_stats, params, step)
+    updates = {}
+    with record_function("ShampooPrecondition"):
+      for n, s in new_stats.items():
+        updates[n], new_stats[n] = _transform_grad(grads[n], s, params[n],
+                                                   step)
+    return updates, ShampooState(count=step + 1, stats=new_stats)
+
+  return GradientTransformation(init_fn, update_fn)
+
+
+class DistributedShampoo(torch.optim.Optimizer):
+  """`torch.optim.Optimizer` over the functional `distributed_shampoo`.
+
+  One parameter group.  ``lr`` is read from the group at every step, so
+  `torch.optim.lr_scheduler` schedulers work; the other keyword arguments
+  are those of `distributed_shampoo`.  Every parameter needs a gradient at
+  every step.  The Shampoo state lives in ``self.shampoo_state``.
+  """
+
+  def __init__(self, params, lr: float, **kwargs):
+    super().__init__(params, dict(lr=lr))
+    if len(self.param_groups) != 1:
+      raise NotImplementedError("DistributedShampoo takes one parameter group")
+    self._named = {str(i): p
+                   for i, p in enumerate(self.param_groups[0]["params"])}
+    self._transform = distributed_shampoo(
+        learning_rate=lambda step: self.param_groups[0]["lr"], **kwargs)
+    self.shampoo_state = self._transform.init(
+        {n: p.detach() for n, p in self._named.items()})
+
+  @torch.no_grad()
+  def step(self, closure=None):
+    loss = None
+    if closure is not None:
+      with torch.enable_grad():
+        loss = closure()
+    grads = {}
+    for n, p in self._named.items():
+      if p.grad is None:
+        raise ValueError(f"parameter {n} has no gradient")
+      grads[n] = p.grad
+    updates, self.shampoo_state = self._transform.update(
+        grads, self.shampoo_state,
+        {n: p.detach() for n, p in self._named.items()})
+    for n, p in self._named.items():
+      p.add_(updates[n])
+    return loss

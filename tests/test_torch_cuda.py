@@ -1,0 +1,132 @@
+"""The port's CUDA kernel against its plain-PyTorch twin, on a card.
+
+Every test here needs a CUDA GPU and skips without one.  The file imports
+torch alone, so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Tolerances: roots rtol 1e-3 / atol 1e-5 (the JAX package's own kernel
+tolerance, `tests/test_pallas_kernels.py:59`; both sides are f32 with sums
+in other orders), ladder rounds equal, iterations within 1.
+"""
+
+import pytest
+import torch
+
+from precondition_tpu_torch.ops.kernels import newton_root
+from precondition_tpu_torch.optim import shampoo
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device")
+  torch.backends.cuda.matmul.allow_tf32 = False
+  return torch.device("cuda")
+
+
+def _psd(n, m, dev, seed=0):
+  gen = torch.Generator(device=dev).manual_seed(seed)
+  a = torch.randn(n, m, m, generator=gen, device=dev)
+  return torch.bmm(a, a.transpose(1, 2)) / m + 0.1 * torch.eye(m, device=dev)
+
+
+def _assert_matches_twin(stats, p, pads=None, **kw):
+  before = newton_root.LAUNCHES
+  r_k, m_k = newton_root.batched_inverse_pth_root_cuda(stats, p, pads, **kw)
+  assert newton_root.LAUNCHES == before + 1
+  r_p, m_p = newton_root.batched_inverse_pth_root_plain(stats, p, pads, **kw)
+  torch.cuda.synchronize()
+  torch.testing.assert_close(r_k, r_p, rtol=1e-3, atol=1e-5)
+  assert torch.equal(m_k.retries, m_p.retries)
+  assert (m_k.iterations - m_p.iterations).abs().max() <= 1
+  torch.testing.assert_close(m_k.max_eigenvalue, m_p.max_eigenvalue)
+  return r_k, m_k
+
+
+@pytest.mark.parametrize("p", [1, 2, 3, 4, 6, 8])
+def test_exponents(dev, p):
+  _assert_matches_twin(_psd(64, 128, dev), p)
+
+
+@pytest.mark.parametrize("m", [1, 8, 17, 200, 1024])
+def test_matrix_sizes(dev, m):
+  _assert_matches_twin(_psd(3, m, dev), 4)
+
+
+def test_mixed_padding(dev):
+  n, m = 12, 128
+  pads = torch.tensor([128, 96, 0, 17, 1, 128] * 2, dtype=torch.int32,
+                      device=dev)
+  idx = torch.arange(m, device=dev)
+  mask = (idx[None, :] < pads[:, None]).float()
+  stats = _psd(n, m, dev) * mask[:, :, None] * mask[:, None, :]
+  roots, met = _assert_matches_twin(stats, 4, pads)
+  assert bool((roots[2] == 0).all()) and met.error[2] == 0
+
+
+def test_warm_start_and_garbage_prev(dev):
+  n, m = 32, 128
+  stats = _psd(n, m, dev)
+  cold, _ = newton_root.batched_inverse_pth_root_plain(stats, 4)
+  drifted = 0.999 * stats + 0.001 * _psd(n, m, dev, seed=1)
+  prevs = cold.clone()
+  prevs[:4] = 100.0 * _psd(4, m, dev, seed=2)
+  _, met = _assert_matches_twin(drifted, 4, prevs=prevs)
+  assert met.iterations[4:].max() <= 2
+
+
+def test_retry_ladder(dev):
+  n, m = 8, 128
+  gen = torch.Generator(device=dev).manual_seed(3)
+  q, _ = torch.linalg.qr(torch.randn(n, m, m, generator=gen, device=dev,
+                                     dtype=torch.float64))
+  spectrum = torch.zeros(n, m, dtype=torch.float64, device=dev)
+  # Rank-16 Grams with eigenvalues 3e4 and an absolute ridge: the solve
+  # fails while cond(A + rI) >= 3e7 and converges at 3e6, a factor 3 from
+  # f32's edge near 1e7 on either side, so both sides take 5 rounds.
+  spectrum[:, :16] = 3e4
+  stats = ((q * spectrum[:, None, :]) @ q.transpose(1, 2)).float()
+  r_k, m_k = newton_root.batched_inverse_pth_root_cuda(
+      stats.contiguous(), 4, relative_matrix_epsilon=False)
+  _, m_p = newton_root.batched_inverse_pth_root_plain(
+      stats, 4, relative_matrix_epsilon=False)
+  assert bool(torch.isfinite(r_k).all())
+  assert bool((m_k.retries == 5).all()) and bool((m_k.error < 0.05).all())
+  assert torch.equal(m_k.retries, m_p.retries)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
+  stats = _psd(2, 16, dev)
+  with pytest.raises(ValueError, match="contiguous"):
+    newton_root.batched_inverse_pth_root_cuda(stats.transpose(1, 2), 4)
+  with pytest.raises(TypeError, match="float32"):
+    newton_root.batched_inverse_pth_root_cuda(stats.double(), 4)
+
+
+def test_shampoo_update_on_the_card_matches_the_cpu_path(dev):
+  shapes = {"w": (256, 384), "norm": (256,)}
+  gen = torch.Generator().manual_seed(0)
+  params = {n: 0.1 * torch.randn(s, generator=gen) for n, s in shapes.items()}
+  grads = [{n: 0.1 * torch.randn(s, generator=gen) for n, s in shapes.items()}
+           for _ in range(3)]
+  results = {}
+  for device in ("cpu", dev):
+    opt = shampoo.distributed_shampoo(
+        learning_rate=0.1, block_size=128, start_preconditioning_step=0,
+        graft_type=shampoo.GraftingType.RMSPROP)
+    p = {n: x.to(device) for n, x in params.items()}
+    state = opt.init(p)
+    before = newton_root.LAUNCHES
+    for g in grads:
+      upd, state = opt.update({n: x.to(device) for n, x in g.items()}, state,
+                              p)
+      p = {n: p[n] + upd[n] for n in p}
+    results[str(device)] = (p, newton_root.LAUNCHES - before)
+  assert results["cpu"][1] == 0 and results[str(dev)][1] == 6
+  for n in shapes:
+    ref = results["cpu"][0][n]
+    torch.testing.assert_close(results[str(dev)][0][n].cpu(), ref, rtol=1e-3,
+                               atol=1e-4 * float(ref.abs().max()))
