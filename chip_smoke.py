@@ -5,13 +5,16 @@ Run from the repository root on a machine with one CUDA GPU:
     python3 chip_smoke.py
 
 Phases, each of which raises on failure:
-  (a) build the Newton-root kernel from precondition_tpu_torch/csrc with nvcc;
+  (a) build the Newton-root kernel from precondition_tpu_torch/csrc with nvcc
+      and check that ptxas reports no spills;
   (b) hold the kernel against its plain-PyTorch twin on the card at the
-      optimizer's shapes ([6144,128,128] p=4 and [32,128,128] p=2): cold,
-      warm (with garbage warm starts that must fall back to cold), mixed
-      padding, and an ill-conditioned batch that drives the retry ladder;
-      roots, ladder rounds and iterations are compared, the true residual
-      is checked in float64 on the host, and both are timed;
+      optimizer's shapes ([6144,128,128] p=4 and [32,128,128] p=2, the
+      kernel's shared-memory-resident path): cold, warm (with garbage warm
+      starts that must fall back to cold), mixed padding, and an
+      ill-conditioned batch that drives the retry ladder; then the global-
+      workspace path on a [64,256,256] p=4 cold batch; roots, ladder rounds
+      and iterations are compared, the true residual is checked in float64
+      on the host, and kernel and twin are timed beside the kernel's bound;
   (c) five `distributed_shampoo` updates on the 58.7M-parameter
       transformer-shaped tree of the JAX package's bench.py (4 layers,
       d=1024, ff=4096, vocab 8192, block 128, RMSProp grafting), counting
@@ -25,6 +28,7 @@ before it the kernels' JSON record, and the last line
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -42,6 +46,9 @@ REPLACES = "precondition_tpu/ops/pallas/newton_root.py:148"
 # Tolerances of kernel against twin: the JAX package's own kernel test
 # (tests/test_pallas_kernels.py:59).  Both are f32 with sums in other orders.
 RTOL, ATOL = 1e-3, 1e-5
+# The H100 SXM's published f32 FMA rate outside the tensor cores and its
+# memory rate (NVIDIA's data sheet, 700 W).
+PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
 # The JAX package's bench.py HYPERS, with its RMSProp grafting.
 HYPERS = dict(learning_rate=0.1, block_size=128, beta1=0.9, beta2=0.999,
               matrix_epsilon=1e-6, start_preconditioning_step=0,
@@ -97,6 +104,18 @@ def residual_check(stats, pads, p, metrics, relative, floor=1e-3):
   return residual
 
 
+def newton_bound_ms(n, m, p, mean_iters):
+  """The least time the card could take for ``n`` cold solves of mean
+  ``mean_iters`` accepted Newton steps: each step is the square-and-
+  multiply chain for T^p, T^p M and H T, 2 m^3 FLOP a product at the f32
+  FMA peak, against reading the statistics once and writing the roots once.
+  Returns (ms, "operations" or "bytes")."""
+  products = p.bit_length() - 1 + bin(p).count("1") - 1 + 2
+  ops_ms = 1e3 * n * mean_iters * products * 2 * m ** 3 / PEAK_F32_FLOPS
+  bytes_ms = 1e3 * 2 * n * m * m * 4 / PEAK_BYTES_S
+  return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
 def cuda_ms(fn, reps):
   start = torch.cuda.Event(enable_timing=True)
   end = torch.cuda.Event(enable_timing=True)
@@ -142,7 +161,8 @@ def compare(name, stats, p, pads=None, prevs=None, max_evs=None,
     worst = (resid / bound).max().item()
     check(worst < 1.0, f"{name}: {label} true residual over its bound "
           f"(max resid/bound {worst})")
-  log(f"  {name}: N={stats.shape[0]} m={stats.shape[-1]} p={p} "
+  log(f"  {name} ({newton_root.kernel_path(stats.shape[-1], p)} path): "
+      f"N={stats.shape[0]} m={stats.shape[-1]} p={p} "
       f"max|kernel-twin|={diff:.3e} iterations mean "
       f"{m_k.iterations.mean().item():.2f} max {m_k.iterations.max().item():.0f}"
       f" (|diff| <= {it_diff:.0f}), retries max {m_k.retries.max().item():.0f}, "
@@ -158,9 +178,16 @@ def phase_build():
   log(f"  {KERNEL_SOURCE} -> {built.path.name}: nvcc "
       f"{' '.join(_build.NVCC_FLAGS)} took {built.seconds:.1f} s "
       f"({time.perf_counter() - start:.1f} s with the hash check)")
+  spills = 0
   for line in built.log.splitlines():
-    if "registers" in line or "spill" in line:
+    if "entry function" in line or "registers" in line or "spill" in line:
       log("  ptxas: " + line.strip())
+    match = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+    if match:
+      spills += int(match.group(1)) + int(match.group(2))
+  if built.log:  # empty when the library was built by an earlier run
+    check(spills == 0, f"ptxas reports {spills} bytes of spills")
   return built.seconds
 
 
@@ -250,20 +277,42 @@ def phase_kernel(device, n4=6144, n2=32, m=128, n_ill=512):
   check(bool((met.error < 0.05).all()),
         "ill-conditioned p=4: a member did not converge within the ladder")
 
+  # The global-workspace path, which takes every m above 128.
+  n_g, m_g = 64, 2 * m
+  check(newton_root.kernel_path(m, 4) == "resident"
+        and newton_root.kernel_path(m, 2) == "resident"
+        and newton_root.kernel_path(m_g, 4) == "global",
+        "the kernel paths are not the ones the main path should take")
+  stats_g = psd_batch(gen, n_g, m_g, device)
+  ev_g = pth_root.power_iteration(stats_g, error_tolerance=1e-2,
+                                  relative_tolerance=True)[1]
+  d, _, _ = compare("cold p=4", stats_g, 4, max_evs=ev_g)
+  diffs.append(d)
+
   timings = {}
-  for name, stats, p, ev in (("[6144,128,128] p=4", stats4, 4, ev4),
-                             ("[32,128,128] p=2", stats2, 2, ev2)):
+  for name, stats, p, ev in (
+      (f"[{n4},{m},{m}] p=4", stats4, 4, ev4),
+      (f"[{n2},{m},{m}] p=2", stats2, 2, ev2),
+      (f"[{n_g},{m_g},{m_g}] p=4", stats_g, 4, ev_g)):
     run_k = lambda: newton_root.batched_inverse_pth_root_cuda(
         stats, p, max_evs=ev)
     run_p = lambda: newton_root.batched_inverse_pth_root_plain(
         stats, p, max_evs=ev)
-    run_k(), run_p()
+    iters = run_k()[1].iterations.mean().item()
+    run_p()
     # Plain, kernel, kernel, plain on one card.
     t_p = [cuda_ms(run_p, 3)]
     t_k = [cuda_ms(run_k, 3), cuda_ms(run_k, 3)]
     t_p.append(cuda_ms(run_p, 3))
-    timings[name] = (float(np.mean(t_k)), float(np.mean(t_p)))
-    log(f"  time {name} cold: kernel {t_k} ms, twin {t_p} ms")
+    kernel_ms, plain_ms = float(np.mean(t_k)), float(np.mean(t_p))
+    bound_ms, bound_by = newton_bound_ms(stats.shape[0], stats.shape[-1], p,
+                                         iters)
+    path = newton_root.kernel_path(stats.shape[-1], p)
+    timings[name] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, mean_iters=iters, path=path)
+    log(f"  time {name} cold ({path} path, {iters:.2f} mean iterations): "
+        f"kernel {t_k} ms, twin {t_p} ms, bound {bound_ms:.3f} ms "
+        f"({bound_by}), {100 * bound_ms / kernel_ms:.1f}% of the bound")
   return max(diffs), timings
 
 
@@ -401,13 +450,17 @@ def main():
       ["nvidia-smi", "--query-gpu=name,power.limit",
        "--format=csv,noheader"], capture_output=True, text=True, check=True,
       timeout=60).stdout.strip().splitlines()[0]
-  kernel_ms, plain_ms = timings["[6144,128,128] p=4"]
+  main = timings["[6144,128,128] p=4"]
   log(json.dumps({"main_path": {"build_s": build_s, "step_ms": step_ms,
-                                "peak_bytes": peak}}))
+                                "peak_bytes": peak},
+                  "newton_root_timings": timings}))
   log(json.dumps({"kernels": [{
       "name": "newton_root", "route": "cuda", "source": KERNEL_SOURCE,
       "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
-      "ms": kernel_ms, "plain_ms": plain_ms}]}))
+      "ms": main["ms"], "plain_ms": main["plain_ms"],
+      "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+      # No single PyTorch call computes a batched inverse p-th root.
+      "library_ms": None, "path": main["path"]}]}))
   log(smi)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

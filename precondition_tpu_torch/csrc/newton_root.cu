@@ -13,22 +13,41 @@
 // [128,128] products (T^2, T^4, T^p M, H T for p=4), 16.8 MFLOP, and the
 // products must run in true f32 (TF32 rounding breaks the coupled
 // iteration's invariant, so no tensor cores).  The kernel is bound by the
-// f32 FMA rate of the CUDA cores and by how many independent matrices keep
-// the SMs busy.  The TPU tile kept ~12 live [k,m,m] buffers in VMEM; on
-// Hopper one [128,128] f32 matrix is 64 KB, so four live iterates already
-// exceed the 227 KB of shared memory a block can use.
+// f32 FMA rate of the CUDA cores, and by whether the operands of those
+// FMAs come from shared memory or have to travel from global memory.
 //
-// What the design does about it: a persistent grid of CTAs, each owning
-// one matrix at a time (i = blockIdx.x; i < N; i += gridDim.x), so every
-// member exits its Newton loop and its retry ladder on its own with no
-// straggler coupling.  The iterates live in a per-CTA workspace of
-// kBuffers m*m matrices in global memory (allocated by the caller, mostly
-// L2-resident); each product is a shared-memory-tiled f32 FMA GEMM with
-// 128x128 output tiles, 256 threads and 8x8 outputs per thread.  Block-wide
-// reductions give max|M - I|, the Frobenius norm and the 1-norm bound.
-// Products are taken over the member's valid n x n corner only (n =
-// padding start): the padded rows and columns are zero in every iterate,
-// so this changes no value and skips their work.
+// Both paths run a persistent grid of 256-thread CTAs, each owning one
+// matrix at a time (i = blockIdx.x; i < N; i += gridDim.x), so every member
+// exits its Newton loop and its retry ladder on its own with no straggler
+// coupling.  Every product is the same FMA GEMM: a 16x16 thread grid, 8x8
+// outputs a thread, one fmaf per k in order 0..n-1, over the member's valid
+// n x n corner only (n = padding start; padded rows and columns are zero in
+// every iterate).  Block-wide reductions give max|M - I|, the Frobenius
+// norm and the 1-norm bound.  The launcher picks the path from (m, p):
+//
+// * Resident (m <= 128 and p = 2^k or 2^k + 1, the main path's p = 4 and
+//   p = 2 among them): every iterate of one member stays in the CTA's
+//   dynamic shared memory, three [128][132] f32 buffers (202,752 B of the
+//   232,448 B a block may use, so one CTA per SM).  Two facts make three
+//   buffers enough.  T = (1 + 1/p) I - M/p is never stored: a product reads
+//   it from M, one FMA per operand element, zero outside the corner.  And
+//   a product's 128x128 output lives in the 256 threads' registers until a
+//   barrier, so it can be stored over one of its own inputs.  So M, H and
+//   one scratch W hold a Newton step whose T^p chain needs one stored
+//   matrix, which is what p = 2^k (squarings in place) and p = 2^k + 1
+//   (T times the last square, in place) need; p = 6 or 7 would need two.
+//   A fourth [128][132] buffer would not fit, which is also why the path
+//   stops at m = 128.  No iterate touches global memory inside the Newton
+//   loop: the statistics are read once per ladder round and the root
+//   written once.  Operands are read from shared memory as float4 (A along
+//   k, B along columns); the row stride 132 puts a warp's two A rows on
+//   different banks.
+// * Global (m in (128, 1024], or p such as 6 or 7): the iterates live in a
+//   per-CTA workspace of kBuffers m*m matrices in global memory, allocated
+//   by the caller (7 x 64 KB at m = 128, which over 132 CTAs overflows the
+//   50 MB L2), and each product streams both operands through a 16-deep
+//   shared-memory stage.  It is bound by those loads as much as by the
+//   FMAs.
 //
 // Maxima propagate NaN like jnp.max (fmaxf would drop it and let a NaN
 // step pass the error-ratio test).
@@ -60,24 +79,25 @@ __device__ __forceinline__ float nan_min(float a, float b) {
   return (a < b || a != a) ? a : b;
 }
 
-// Block-wide reductions: every thread gets the same value.
-__device__ float cta_sum(float v, Smem& s) {
+// Block-wide reductions over a kWarps scratch in shared memory: every
+// thread gets the same value.
+__device__ float cta_sum(float v, float* red) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  if ((threadIdx.x & 31) == 0) s.red[threadIdx.x >> 5] = v;
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
-  float t = s.red[0];
-  for (int w = 1; w < kWarps; ++w) t += s.red[w];
+  float t = red[0];
+  for (int w = 1; w < kWarps; ++w) t += red[w];
   __syncthreads();
   return t;
 }
 
-__device__ float cta_max(float v, Smem& s) {
+__device__ float cta_max(float v, float* red) {
   for (int off = 16; off > 0; off >>= 1)
     v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, off));
-  if ((threadIdx.x & 31) == 0) s.red[threadIdx.x >> 5] = v;
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
-  float t = s.red[0];
-  for (int w = 1; w < kWarps; ++w) t = nan_max(t, s.red[w]);
+  float t = red[0];
+  for (int w = 1; w < kWarps; ++w) t = nan_max(t, red[w]);
   __syncthreads();
   return t;
 }
@@ -174,7 +194,7 @@ __device__ float cta_err(const float* X, float scale, int n, int ld, Smem& s) {
     const int i = idx / n, j = idx % n;
     v = nan_max(v, fabsf(X[(size_t)i * ld + j] * scale - (i == j ? 1.f : 0.f)));
   }
-  return cta_max(v, s);
+  return cta_max(v, s.red);
 }
 
 struct Params {
@@ -234,7 +254,7 @@ newton_root_kernel(const Params prm) {
         const float d = S[(size_t)i * m + j] + (i == j ? ridge_i : 0.f);
         fro2 += d * d;
       }
-      const float fro = sqrtf(cta_sum(fro2, s));
+      const float fro = sqrtf(cta_sum(fro2, s.red));
       const float z = (1.f + pf) / (2.f * nan_max(fro, 1e-30f));
 
       bool use_warm = false;
@@ -267,7 +287,7 @@ newton_root_kernel(const Params prm) {
           for (int off = 16; off > 0; off >>= 1) r += __shfl_xor_sync(0xffffffffu, r, off);
           bound = nan_max(bound, r);
         }
-        bound = cta_max(bound, s);
+        bound = cta_max(bound, s.red);
         const float z_w = nan_min(1.f, (1.f + pf) / (2.f * nan_max(bound, 1e-30f)));
         use_warm = cta_err(M, z_w, n, m, s) <= prm.warm_error_threshold;
         if (use_warm) {
@@ -346,15 +366,333 @@ newton_root_kernel(const Params prm) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Resident path: the iterates of one member live in three shared-memory
+// buffers of kRes rows with row stride kLd.  Every write to a buffer covers
+// its whole kRes x kRes tile and stores zero outside the member's n x n
+// corner, so the float4 reads past n in the GEMM add nothing.
+
+constexpr int kRes = 128;          // largest m the resident path takes
+constexpr int kLd = kRes + 4;      // row stride of a resident buffer, floats
+constexpr int kResBuf = kRes * kLd;
+constexpr int kResSmem = 3 * kResBuf * (int)sizeof(float);  // 202,752 B
+
+// The resident path takes p = 2^k or 2^k + 1: their T^p chain needs one
+// stored matrix.
+__host__ __device__ inline bool resident(int m, int p) {
+  const int q = (p > 1 && (p & 1)) ? p - 1 : p;
+  return m <= kRes && p >= 1 && (q & (q - 1)) == 0;
+}
+
+// Row and column of a thread's i-th / j-th output, as in cta_gemm.
+__device__ __forceinline__ int own_row(int i) {
+  return (i < 4 ? 0 : 64) + (threadIdx.x >> 4) * 4 + (i & 3);
+}
+__device__ __forceinline__ int own_col(int j) {
+  return (j < 4 ? 0 : 64) + (threadIdx.x & 15) * 4 + (j & 3);
+}
+
+// acc = A @ B over the n x n corner of two resident buffers.  With TA (TB)
+// the operand is T = (1 + 1/p) I - X/p of the buffer X, computed on read
+// with the expression the global path stores, and zero outside the corner.
+// Reads only: the caller stores acc when every thread is done (res_store).
+template <bool TA, bool TB>
+__device__ __forceinline__ void res_gemm(const float* __restrict__ A,
+                                         const float* __restrict__ B, int n,
+                                         float inv_p, float (&acc)[8][8]) {
+  const int tx = threadIdx.x & 15;
+  const float diag = 1.f + inv_p;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  const int n4 = (n + 3) & ~3;
+  for (int k0 = 0; k0 < n4; k0 += 4) {
+    float a[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = own_row(i);
+      const float4 v = *reinterpret_cast<const float4*>(A + r * kLd + k0);
+      a[i][0] = v.x;
+      a[i][1] = v.y;
+      a[i][2] = v.z;
+      a[i][3] = v.w;
+      if (TA) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          a[i][kk] = (r == k0 + kk && r < n ? diag : 0.f) - inv_p * a[i][kk];
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float* brow = B + (k0 + kk) * kLd + tx * 4;
+      const float4 b0 = *reinterpret_cast<const float4*>(brow);
+      const float4 b1 = *reinterpret_cast<const float4*>(brow + 64);
+      float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      if (TB) {
+        const int k = k0 + kk;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          bv[j] = (k == own_col(j) && k < n ? diag : 0.f) - inv_p * bv[j];
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i][kk], bv[j], acc[i][j]);
+    }
+  }
+}
+
+// Stores acc over C (which may be an operand of the product that made it),
+// zero outside the corner.  Barriers before and after.
+__device__ __forceinline__ void res_store(const float (&acc)[8][8], float* C, int n) {
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = own_row(i);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = own_col(4 * h);
+      float4 v;
+      v.x = r < n && c < n ? acc[i][4 * h] : 0.f;
+      v.y = r < n && c + 1 < n ? acc[i][4 * h + 1] : 0.f;
+      v.z = r < n && c + 2 < n ? acc[i][4 * h + 2] : 0.f;
+      v.w = r < n && c + 3 < n ? acc[i][4 * h + 3] : 0.f;
+      *reinterpret_cast<float4*>(C + r * kLd + c) = v;
+    }
+  }
+  __syncthreads();
+}
+
+// This thread's share of max over the corner of |acc - I|.
+__device__ __forceinline__ float acc_err(const float (&acc)[8][8], int n) {
+  float v = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = own_row(i);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = own_col(j);
+      if (r < n && c < n) v = nan_max(v, fabsf(acc[i][j] - (r == c ? 1.f : 0.f)));
+    }
+  }
+  return v;
+}
+
+// dst = scale * src (global, row stride m) on the corner, zero elsewhere.
+__device__ void res_stage(const float* __restrict__ src, float scale, float* dst,
+                          int n, int m) {
+  for (int idx = threadIdx.x; idx < kRes * kRes; idx += kThreads) {
+    const int i = idx / kRes, j = idx % kRes;
+    dst[i * kLd + j] = i < n && j < n ? src[(size_t)i * m + j] * scale : 0.f;
+  }
+  __syncthreads();
+}
+
+// max over the corner of |scale * X - I|, X a resident buffer.
+__device__ float res_err(const float* X, float scale, int n, float* red) {
+  float v = 0.f;
+  for (int idx = threadIdx.x; idx < n * n; idx += kThreads) {
+    const int i = idx / n, j = idx % n;
+    v = nan_max(v, fabsf(X[i * kLd + j] * scale - (i == j ? 1.f : 0.f)));
+  }
+  return cta_max(v, red);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+newton_root_resident(const Params prm) {
+  extern __shared__ __align__(16) float res_smem[];
+  __shared__ float red[kWarps];
+  const int m = prm.m;
+  const size_t mm = (size_t)m * m;
+  const int p = prm.p;
+  const float pf = (float)p;
+  const float inv_p = 1.f / pf;
+  const bool warm = prm.prevs != nullptr;
+  const int total_rounds = warm ? prm.num_tries + 1 : prm.num_tries;
+  float acc[8][8];
+
+  for (int b = blockIdx.x; b < prm.n_mats; b += gridDim.x) {
+    const float* S = prm.stats + (size_t)b * mm;
+    const float* prev = warm ? prm.prevs + (size_t)b * mm : nullptr;
+    const int n = min(max(prm.pads[b], 0), m);
+    const float max_ev = prm.relative_matrix_epsilon ? prm.max_evs[b] : 1.f;
+    const float ridge = prm.ridge_epsilon * nan_max(max_ev, 1e-25f);
+
+    // Roles of the three buffers; the Newton loop swaps M and W.
+    float* M = res_smem;
+    float* H = res_smem + kResBuf;
+    float* W = res_smem + 2 * kResBuf;
+
+    float error = 1000.f, iters = 0.f, retries = 0.f;
+    bool failed = true, warm_final = false, entered = false;
+    for (int rnd = 0; rnd < total_rounds && failed; ++rnd) {
+      const float expo = (float)(warm ? max(rnd - 1, 0) : rnd);
+      const float ridge_i = ridge * expf(expo * kLn10);
+
+      float fro2 = 0.f;
+      for (int idx = threadIdx.x; idx < n * n; idx += kThreads) {
+        const int i = idx / n, j = idx % n;
+        const float d = S[(size_t)i * m + j] + (i == j ? ridge_i : 0.f);
+        fro2 += d * d;
+      }
+      const float fro = sqrtf(cta_sum(fro2, red));
+      const float z = (1.f + pf) / (2.f * nan_max(fro, 1e-30f));
+
+      bool use_warm = false;
+      if (warm && rnd == 0) {
+        // Round 0 tries C (A + rI) C with C = prev^{p/2}, certified by
+        // |z_w M0_w - I| <= warm_error_threshold.  p is a power of two
+        // here, so C is prev squared in place.  C goes to H, S to M, and
+        // the products to W.
+        if (p == 2) {
+          res_stage(prev, 1.f, H, n, m);
+        } else {
+          res_stage(prev, 1.f, M, n, m);
+          res_gemm<false, false>(M, M, n, inv_p, acc);
+          res_store(acc, H, n);
+          for (int q = 4; q < p; q *= 2) {
+            res_gemm<false, false>(H, H, n, inv_p, acc);
+            res_store(acc, H, n);
+          }
+        }
+        res_stage(S, 1.f, M, n, m);
+        res_gemm<false, false>(M, H, n, inv_p, acc);  // S C
+        res_store(acc, W, n);
+        res_gemm<false, false>(H, W, n, inv_p, acc);  // C (S C)
+        res_store(acc, W, n);
+        for (int idx = threadIdx.x; idx < n * n; idx += kThreads) {
+          const int i = idx / n, j = idx % n;
+          if (i < j) {
+            const float v = 0.5f * (W[i * kLd + j] + W[j * kLd + i]);
+            W[i * kLd + j] = v;
+            W[j * kLd + i] = v;
+          }
+        }
+        __syncthreads();
+        // M0_w = C (A + rI) C = sym(C S C) + r C^2, C^2 from registers.
+        res_gemm<false, false>(H, H, n, inv_p, acc);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int r = own_row(i);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int c = own_col(j);
+            M[r * kLd + c] = r < n && c < n ? W[r * kLd + c] + ridge_i * acc[i][j] : 0.f;
+          }
+        }
+        __syncthreads();
+        // 1-norm bound: the largest absolute row sum, one warp per row.
+        float bound = 0.f;
+        for (int i = threadIdx.x >> 5; i < n; i += kWarps) {
+          float r = 0.f;
+          for (int j = threadIdx.x & 31; j < n; j += 32) r += fabsf(M[i * kLd + j]);
+          for (int off = 16; off > 0; off >>= 1) r += __shfl_xor_sync(0xffffffffu, r, off);
+          bound = nan_max(bound, r);
+        }
+        bound = cta_max(bound, red);
+        const float z_w = nan_min(1.f, (1.f + pf) / (2.f * nan_max(bound, 1e-30f)));
+        use_warm = res_err(M, z_w, n, red) <= prm.warm_error_threshold;
+        if (use_warm) {
+          const float hs = expf(logf(z_w) * inv_p);
+          for (int idx = threadIdx.x; idx < n * n; idx += kThreads) {
+            const int i = idx / n, j = idx % n;
+            M[i * kLd + j] *= z_w;
+          }
+          res_stage(prev, hs, H, n, m);
+        }
+      }
+      if (!use_warm) {
+        const float hs = expf(logf(z) * inv_p);
+        for (int idx = threadIdx.x; idx < kRes * kRes; idx += kThreads) {
+          const int i = idx / kRes, j = idx % kRes;
+          const bool in = i < n && j < n;
+          const float d = in ? S[(size_t)i * m + j] + (i == j ? ridge_i : 0.f) : 0.f;
+          M[i * kLd + j] = in ? d * z : 0.f;
+          H[i * kLd + j] = in && i == j ? hs : 0.f;
+        }
+        __syncthreads();
+      }
+
+      float n_err = res_err(M, 1.f, n, red);
+      float n_it = 0.f;
+      bool active = n_err > prm.error_tolerance;
+      for (int it = 0; it < prm.num_iters && active; ++it) {
+        // X = T^p M in registers, T^p built in W by cta_pow's product
+        // order: T T, squarings in place, then T W for odd p.
+        if (p == 1) {
+          res_gemm<true, false>(M, M, n, inv_p, acc);
+        } else {
+          res_gemm<true, true>(M, M, n, inv_p, acc);
+          res_store(acc, W, n);
+          for (int q = 4; q <= p; q *= 2) {
+            res_gemm<false, false>(W, W, n, inv_p, acc);
+            res_store(acc, W, n);
+          }
+          if (p & 1) {
+            res_gemm<true, false>(M, W, n, inv_p, acc);
+            res_store(acc, W, n);
+          }
+          res_gemm<false, false>(W, M, n, inv_p, acc);
+        }
+        const float new_err = cta_max(acc_err(acc, n), red);
+        const float ratio = new_err / nan_max(n_err, 1e-30f);
+        const bool ok = ratio < prm.max_error_ratio;
+        if (ok) {
+          // Adopt M <- T^p M, then H <- H T with T from the old M; a
+          // rejected step keeps both.
+          res_store(acc, W, n);
+          res_gemm<false, true>(H, M, n, inv_p, acc);
+          res_store(acc, H, n);
+          float* t = M;
+          M = W;
+          W = t;
+          n_err = new_err;
+          n_it += 1.f;
+        }
+        active = ok && n_err > prm.error_tolerance;
+      }
+      error = n_err;
+      iters = n_it;
+      retries += 1.f;
+      warm_final = use_warm;
+      entered = true;
+      failed = error > prm.retry_threshold;
+    }
+
+    const bool sym = !warm || warm_final;
+    float* R = prm.roots + (size_t)b * mm;
+    for (int idx = threadIdx.x; idx < m * m; idx += kThreads) {
+      const int i = idx / m, j = idx % m;
+      float v = 0.f;
+      if (entered && i < n && j < n) {
+        v = sym ? 0.5f * (H[i * kLd + j] + H[j * kLd + i]) : H[i * kLd + j];
+      }
+      R[idx] = v;
+    }
+    if (threadIdx.x == 0) {
+      prm.errors[b] = n == 0 ? 0.f : error;
+      prm.iters[b] = iters;
+      prm.retries[b] = retries;
+      prm.max_ev_out[b] = max_ev;
+    }
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-int newton_root_workspace_buffers() { return kBuffers; }
+// m*m matrices of global workspace each CTA needs: 0 on the resident path.
+int newton_root_workspace_buffers(int m, int p) { return resident(m, p) ? 0 : kBuffers; }
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-// `prevs` may be null (cold solve); `max_evs` is read only when
-// relative_matrix_epsilon is nonzero.
+// Launches on `stream` and returns cudaGetLastError() (0 on success), or
+// the error that refused the resident kernel its shared memory.  `prevs`
+// may be null (cold solve); `max_evs` is read only when
+// relative_matrix_epsilon is nonzero; `workspace` holds
+// grid * newton_root_workspace_buffers(m, p) * m * m floats and may be null
+// when that is 0.
 int newton_root_launch(const float* stats, const int32_t* pads, const float* max_evs,
                        const float* prevs, float* roots, float* errors, float* iters,
                        float* retries, float* max_ev_out, float* workspace,
@@ -386,6 +724,14 @@ int newton_root_launch(const float* stats, const int32_t* pads, const float* max
   prm.retry_threshold = retry_threshold;
   prm.max_error_ratio = max_error_ratio;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (resident(m, p)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        newton_root_resident, cudaFuncAttributeMaxDynamicSharedMemorySize, kResSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    newton_root_resident<<<grid, kThreads, kResSmem, st>>>(prm);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (workspace == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   switch (p) {
     case 2: newton_root_kernel<2><<<grid, kThreads, 0, st>>>(prm); break;
     case 4: newton_root_kernel<4><<<grid, kThreads, 0, st>>>(prm); break;

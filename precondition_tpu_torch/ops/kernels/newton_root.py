@@ -7,10 +7,20 @@ kernel is bound by the f32 FMA rate of the CUDA cores: every Newton step is
 a chain of dependent ``[m, m]`` products that must stay in true f32 (TF32
 rounding breaks the coupled iteration's invariant, see the JAX package's
 DESIGN.md on the retired mixed-precision ladder), so tensor cores are out.
-Its design -- one CTA per matrix at a time over a persistent grid, iterates
-in a per-CTA global workspace, shared-memory-tiled FMA GEMMs -- lets every
-member leave its Newton loop and retry ladder on its own; the source file
-says more.
+One CTA solves one matrix at a time over a persistent grid, so every member
+leaves its Newton loop and retry ladder on its own.  The C launcher picks
+one of two paths from ``(m, p)`` (`kernel_path`):
+
+* **resident** (``m <= 128`` and p a power of two or one more, the main
+  path's p = 4 and 2 among them): the iterates stay in three shared-memory
+  buffers of the CTA and never touch global memory inside the Newton loop;
+  no workspace is allocated.  T is computed where a product reads it and a
+  product's output waits in registers, so three buffers hold M, H and the
+  one scratch such a p needs.  A fourth buffer does not fit, which caps it
+  at m = 128 and at those p.
+* **global** (every other ``(m, p)``, up to m = 1024): the iterates live in
+  a per-CTA workspace in global memory, and the products stream them
+  through shared memory; the source file says more.
 
 Three entry points share one signature and one semantics:
 
@@ -39,9 +49,10 @@ from precondition_tpu_torch.ops.pth_root import RootMetrics
 _LN10 = 2.302585092994046
 # Largest matrix the kernel admits (the optimizer's default block size).
 MAX_M = 1024
-# CTAs per SM of the persistent grid.  The kernel uses 237 registers a
-# thread (ptxas, sm_90a), so one 256-thread CTA fills an SM's register file;
-# 1, 2 and 4 measured the same on an H100 80GB HBM3 at 700 W.
+# CTAs per SM of the persistent grid.  The resident path's 202,752 B of
+# shared memory admit one CTA per SM.  The global path uses 237 registers a
+# thread (ptxas, sm_90a), so one 256-thread CTA fills an SM's register file
+# there too; 1, 2 and 4 measured the same on an H100 80GB HBM3 at 700 W.
 _CTAS_PER_SM = 1
 
 LAUNCHES = 0
@@ -208,11 +219,17 @@ def _library() -> ctypes.CDLL:
       f, f, i32, f, f, i32, f,       # ridge, tol, relative, warm, retry, tries, ratio
       ptr]                           # stream
   lib.newton_root_launch.restype = i32
-  lib.newton_root_workspace_buffers.argtypes = []
+  lib.newton_root_workspace_buffers.argtypes = [i32, i32]  # m, p
   lib.newton_root_workspace_buffers.restype = i32
   lib.newton_root_error_string.argtypes = [i32]
   lib.newton_root_error_string.restype = ctypes.c_char_p
   return lib
+
+
+def kernel_path(m: int, p: int) -> str:
+  """Which path of the kernel solves ``[N, m, m]`` at exponent p: "resident"
+  (no global workspace) or "global".  Builds the kernel on first use."""
+  return "global" if _library().newton_root_workspace_buffers(m, p) else "resident"
 
 
 def _check_operand(name, x, shape, dtype, device):
@@ -270,19 +287,21 @@ def batched_inverse_pth_root_cuda(
   lib = _library()
   sms = torch.cuda.get_device_properties(dev).multi_processor_count
   grid = min(n, sms * _CTAS_PER_SM)
-  # Allocated on the stream the kernel runs on: once the tensor dies on
-  # return, the caching allocator reuses its memory (and that of the
-  # operands `_prepare` made) only for work queued after the kernel there.
-  workspace = torch.empty(
-      grid * lib.newton_root_workspace_buffers() * m * m,
-      dtype=torch.float32, device=dev)
+  # Only the global path has a workspace.  Allocated on the stream the
+  # kernel runs on: once the tensor dies on return, the caching allocator
+  # reuses its memory (and that of the operands `_prepare` made) only for
+  # work queued after the kernel there.
+  buffers = lib.newton_root_workspace_buffers(m, p)
+  workspace = torch.empty(grid * buffers * m * m, dtype=torch.float32,
+                          device=dev) if buffers else None
   with torch.cuda.device(dev):
     stream = torch.cuda.current_stream(dev).cuda_stream
   rc = lib.newton_root_launch(
       stats.data_ptr(), padding_starts.data_ptr(), max_evs.data_ptr(),
       None if prevs is None else prevs.data_ptr(),
       roots.data_ptr(), errors.data_ptr(), iters.data_ptr(),
-      retries.data_ptr(), maxevs.data_ptr(), workspace.data_ptr(),
+      retries.data_ptr(), maxevs.data_ptr(),
+      None if workspace is None else workspace.data_ptr(),
       n, m, p, grid, num_iters,
       ridge_epsilon, error_tolerance, int(bool(relative_matrix_epsilon)),
       warm_error_threshold, retry_loop_error_threshold, num_tries,

@@ -48,12 +48,30 @@ def _assert_matches_twin(stats, p, pads=None, **kw):
 
 @pytest.mark.parametrize("p", [1, 2, 3, 4, 6, 8])
 def test_exponents(dev, p):
+  # At m = 128 p = 6 takes the global path, the others the resident one.
+  assert newton_root.kernel_path(128, p) == ("global" if p == 6 else
+                                             "resident")
   _assert_matches_twin(_psd(64, 128, dev), p)
 
 
-@pytest.mark.parametrize("m", [1, 8, 17, 200, 1024])
+@pytest.mark.parametrize("m", [1, 8, 17, 96, 100, 127, 128, 129, 200, 1024])
 def test_matrix_sizes(dev, m):
+  assert newton_root.kernel_path(m, 4) == ("resident" if m <= 128 else
+                                           "global")
   _assert_matches_twin(_psd(3, m, dev), 4)
+
+
+def test_resident_path_has_no_workspace(dev):
+  stats = _psd(264, 128, dev)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats(dev)
+  base = torch.cuda.memory_allocated(dev)
+  roots, _ = newton_root.batched_inverse_pth_root_cuda(
+      stats, 4, max_evs=torch.ones(264, device=dev))
+  torch.cuda.synchronize()
+  # The roots and the [4, N] metrics; a workspace would add 7 x 64 KB per CTA.
+  extra = torch.cuda.max_memory_allocated(dev) - base
+  assert extra < roots.numel() * 4 + 2 ** 20
 
 
 def test_mixed_padding(dev):
@@ -67,14 +85,15 @@ def test_mixed_padding(dev):
   assert bool((roots[2] == 0).all()) and met.error[2] == 0
 
 
-def test_warm_start_and_garbage_prev(dev):
+@pytest.mark.parametrize("p", [2, 4])
+def test_warm_start_and_garbage_prev(dev, p):
   n, m = 32, 128
   stats = _psd(n, m, dev)
-  cold, _ = newton_root.batched_inverse_pth_root_plain(stats, 4)
+  cold, _ = newton_root.batched_inverse_pth_root_plain(stats, p)
   drifted = 0.999 * stats + 0.001 * _psd(n, m, dev, seed=1)
   prevs = cold.clone()
   prevs[:4] = 100.0 * _psd(4, m, dev, seed=2)
-  _, met = _assert_matches_twin(drifted, 4, prevs=prevs)
+  _, met = _assert_matches_twin(drifted, p, prevs=prevs)
   assert met.iterations[4:].max() <= 2
 
 
