@@ -5,9 +5,11 @@ Run from the repository root on a machine with one CUDA GPU:
     python3 chip_smoke.py
 
 Phases, each of which raises on failure:
-  (a) build the Newton-root kernel from precondition_tpu_torch/csrc with nvcc
-      and check that ptxas reports no spills;
-  (b) hold the kernel against its plain-PyTorch twin on the card at the
+  (a) build the Newton-root and matmul-chain kernels from
+      precondition_tpu_torch/csrc with nvcc, one nvcc each, started
+      together; check that ptxas reports no spills in either, and that the
+      resident Newton kernel keeps its registers (RESIDENT_REGISTERS);
+  (b) hold the Newton kernel against its plain-PyTorch twin on the card at the
       optimizer's shapes ([6144,128,128] p=4 and [32,128,128] p=2, the
       kernel's shared-memory-resident path): cold, warm (with garbage warm
       starts that must fall back to cold), mixed padding, and an
@@ -15,19 +17,26 @@ Phases, each of which raises on failure:
       workspace path on a [64,256,256] p=4 cold batch; roots, ladder rounds
       and iterations are compared, the true residual is checked in float64
       on the host, and kernel and twin are timed beside the kernel's bound;
+      then the matmul-chain kernel against its twin at [6144,128,128] p=4,
+      8 steps, timed beside its bound;
   (c) five `distributed_shampoo` updates on the 58.7M-parameter
       transformer-shaped tree of the JAX package's bench.py (4 layers,
       d=1024, ff=4096, vocab 8192, block 128, RMSProp grafting), counting
       kernel launches, plus the same optimizer on the GPU against its CPU
       path on a small tree;
   (d) `DistributedShampoo` training a width-1024 least-squares model;
-  (e) the card's name, power limit and TF32 setting.
+  (e) the tile-breakdown probe (precondition_tpu_torch.probes.tile_breakdown)
+      at the JAX script's [712,128,128] p=4 and at the main path's
+      [6144,128,128] p=4, each JSON on its own line, counting launches;
+  (f) the card's name, power limit and TF32 setting.
 The line before the last is nvidia-smi's name and power limit, a line
 before it the kernels' JSON record, and the last line
 {"ok": true, "device": {...}}.
 """
 
+import concurrent.futures
 import json
+import math
 import re
 import subprocess
 import sys
@@ -38,11 +47,22 @@ import torch
 
 from precondition_tpu_torch.ops import pth_root
 from precondition_tpu_torch.ops.kernels import _build
+from precondition_tpu_torch.ops.kernels import matmul_chain
 from precondition_tpu_torch.ops.kernels import newton_root
 from precondition_tpu_torch.optim import shampoo
+from precondition_tpu_torch.probes import tile_breakdown
 
-KERNEL_SOURCE = "precondition_tpu_torch/csrc/newton_root.cu"
-REPLACES = "precondition_tpu/ops/pallas/newton_root.py:148"
+KERNELS = ("newton_root", "matmul_chain")
+SOURCES = {k: f"precondition_tpu_torch/csrc/{k}.cu" for k in KERNELS}
+REPLACES = {
+    "newton_root": "precondition_tpu/ops/pallas/newton_root.py:148",
+    "matmul_chain": "benchmarks/pallas_tile_breakdown.py:86",
+}
+# ptxas' registers for the resident Newton kernel (sm_90a, CUDA 12.8) when
+# its products moved into csrc/resident_gemm.cuh; a change shows here first.
+RESIDENT_REGISTERS = 242
+# Steps of the matmul chain in phase (b): the probe's first budget.
+CHAIN_ITERS = 8
 # Tolerances of kernel against twin: the JAX package's own kernel test
 # (tests/test_pallas_kernels.py:59).  Both are f32 with sums in other orders.
 RTOL, ATOL = 1e-3, 1e-5
@@ -105,12 +125,13 @@ def residual_check(stats, pads, p, metrics, relative, floor=1e-3):
 
 
 def newton_bound_ms(n, m, p, mean_iters):
-  """The least time the card could take for ``n`` cold solves of mean
-  ``mean_iters`` accepted Newton steps: each step is the square-and-
-  multiply chain for T^p, T^p M and H T, 2 m^3 FLOP a product at the f32
-  FMA peak, against reading the statistics once and writing the roots once.
+  """The least time the card could take for ``n`` members of mean
+  ``mean_iters`` Newton steps (accepted steps for the Newton kernel, all
+  steps for the matmul chain): each step is the square-and-multiply chain
+  for T^p, T^p M and H T, 2 m^3 FLOP a product at the f32 FMA peak, against
+  reading the input once and writing the output once.
   Returns (ms, "operations" or "bytes")."""
-  products = p.bit_length() - 1 + bin(p).count("1") - 1 + 2
+  products = tile_breakdown.products_per_step(p)
   ops_ms = 1e3 * n * mean_iters * products * 2 * m ** 3 / PEAK_F32_FLOPS
   bytes_ms = 1e3 * 2 * n * m * m * 4 / PEAK_BYTES_S
   return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
@@ -174,21 +195,37 @@ def compare(name, stats, p, pads=None, prevs=None, max_evs=None,
 def phase_build():
   log("(a) build")
   start = time.perf_counter()
-  built = _build.build("newton_root")
-  log(f"  {KERNEL_SOURCE} -> {built.path.name}: nvcc "
-      f"{' '.join(_build.NVCC_FLAGS)} took {built.seconds:.1f} s "
-      f"({time.perf_counter() - start:.1f} s with the hash check)")
-  spills = 0
-  for line in built.log.splitlines():
-    if "entry function" in line or "registers" in line or "spill" in line:
-      log("  ptxas: " + line.strip())
-    match = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-    if match:
-      spills += int(match.group(1)) + int(match.group(2))
-  if built.log:  # empty when the library was built by an earlier run
-    check(spills == 0, f"ptxas reports {spills} bytes of spills")
-  return built.seconds
+  # One nvcc for each source, all started together.
+  with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+    built = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
+  log(f"  both built in {time.perf_counter() - start:.1f} s with the hash "
+      "check")
+  registers = {}
+  for name, lib in built.items():
+    log(f"  {SOURCES[name]} -> {lib.path.name}: nvcc "
+        f"{' '.join(_build.NVCC_FLAGS)} took {lib.seconds:.1f} s")
+    spills, entry = 0, None
+    for line in lib.log.splitlines():
+      if "entry function" in line or "registers" in line or "spill" in line:
+        log("  ptxas: " + line.strip())
+      match = re.search(r"entry function '([^']+)'", line)
+      if match:
+        entry = match.group(1)
+      match = re.search(r"Used (\d+) registers", line)
+      if match:
+        registers[entry] = int(match.group(1))
+      match = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        line)
+      if match:
+        spills += int(match.group(1)) + int(match.group(2))
+    if lib.log:  # empty when the library was built by an earlier run
+      check(spills == 0, f"ptxas reports {spills} bytes of spills in {name}")
+  if built["newton_root"].log:
+    resident = [r for e, r in registers.items() if "newton_root_resident" in e]
+    check(resident == [RESIDENT_REGISTERS],
+          f"the resident Newton kernel uses {resident} registers, expected "
+          f"{RESIDENT_REGISTERS}")
+  return {name: lib.seconds for name, lib in built.items()}
 
 
 def phase_kernel(device, n4=6144, n2=32, m=128, n_ill=512):
@@ -313,7 +350,33 @@ def phase_kernel(device, n4=6144, n2=32, m=128, n_ill=512):
     log(f"  time {name} cold ({path} path, {iters:.2f} mean iterations): "
         f"kernel {t_k} ms, twin {t_p} ms, bound {bound_ms:.3f} ms "
         f"({bound_by}), {100 * bound_ms / kernel_ms:.1f}% of the bound")
-  return max(diffs), timings
+  return max(diffs), timings, chain_check(stats4, 4)
+
+
+def chain_check(stats, p, iters=CHAIN_ITERS):
+  """The matmul-chain kernel against its twin on ``stats`` and both timed,
+  plain, kernel, kernel, plain."""
+  run_k = lambda: matmul_chain.matmul_chain_cuda(stats, p, iters)
+  run_p = lambda: matmul_chain.matmul_chain_plain(stats, p, iters)
+  got, want = run_k(), run_p()
+  torch.cuda.synchronize()
+  diff = (got - want).abs().max().item()
+  check(bool(torch.isfinite(got).all()), "matmul chain: non-finite output")
+  check(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
+        f"matmul chain: differs from the twin by up to {diff}")
+  t_p = [cuda_ms(run_p, 3)]
+  t_k = [cuda_ms(run_k, 3), cuda_ms(run_k, 3)]
+  t_p.append(cuda_ms(run_p, 3))
+  n, m = stats.shape[0], stats.shape[-1]
+  bound_ms, bound_by = newton_bound_ms(n, m, p, iters)
+  timing = dict(ms=float(np.mean(t_k)), plain_ms=float(np.mean(t_p)),
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=diff,
+                path="resident")
+  log(f"  matmul chain [{n},{m},{m}] p={p}, {iters} steps: "
+      f"max|kernel-twin|={diff:.3e}; kernel {t_k} ms, twin {t_p} ms, bound "
+      f"{bound_ms:.3f} ms ({bound_by}), "
+      f"{100 * bound_ms / timing['ms']:.1f}% of the bound")
+  return timing
 
 
 def bench_tree_shapes(d=1024, ff=4096, vocab=8192, layers=4):
@@ -374,7 +437,7 @@ def phase_main_path(device, steps=5, **tree):
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats(device)
   times = []
-  newton_root.LAUNCHES = 0
+  newton_root.LAUNCHES = matmul_chain.LAUNCHES = 0
   for step in range(steps):
     grads = {n: 0.01 * torch.randn(s, generator=gen, device=device)
              for n, s in shapes.items()}
@@ -398,6 +461,8 @@ def phase_main_path(device, steps=5, **tree):
           f"step {step}: the failure gate rejected roots (max error "
           f"{errors.max().item()})")
   launches = newton_root.LAUNCHES
+  check(matmul_chain.LAUNCHES == 0,
+        "the matmul chain ran on the optimizer's path")
   peak = torch.cuda.max_memory_allocated(device)
   median_ms = 1e3 * float(np.median(times[1:]))
   log(f"  {steps} steps: kernel launches {launches}; step times "
@@ -431,6 +496,29 @@ def phase_trainer(device, width=1024, rows=4096, steps=20):
         f"least-squares loss did not fall: {losses}")
 
 
+def phase_probe(fixtures=(712, 6144)):
+  """The tile-breakdown probe's path: returns the launches of each kernel
+  over its runs."""
+  log("(e) tile-breakdown probe")
+  newton_root.LAUNCHES = matmul_chain.LAUNCHES = 0
+  for n in fixtures:
+    out = tile_breakdown.measure(n=n, m=128, p=4)
+    log(json.dumps({"tile_breakdown": out}))
+    for key, value in out.items():
+      if isinstance(value, float):
+        check(math.isfinite(value), f"probe [{n},128,128]: {key} = {value}")
+    check(out["fullbody_iters24_mean_iters"] >= 23
+          and out["fullbody_iters8_mean_iters"] >= 7,
+          f"probe [{n},128,128]: the fixed budgets were not reached")
+    check(out["matmulonly_per_iter_ms"] > 0 and out["fullbody_per_iter_ms"] > 0,
+          f"probe [{n},128,128]: a per-step slope is not positive")
+  launches = {"newton_root": newton_root.LAUNCHES,
+              "matmul_chain": matmul_chain.LAUNCHES}
+  log(f"  launches over the probe's runs: {launches}")
+  check(all(launches.values()), "the probe did not launch both kernels")
+  return launches
+
+
 def main():
   if not torch.cuda.is_available():
     raise SystemExit("chip_smoke.py needs a CUDA GPU: "
@@ -438,10 +526,11 @@ def main():
   device = torch.device("cuda", 0)
   pth_root.require_true_f32()
   build_s = phase_build()
-  max_err, timings = phase_kernel(device)
+  max_err, timings, chain = phase_kernel(device)
   launches, step_ms, peak = phase_main_path(device)
   phase_trainer(device)
-  log("(e) card")
+  probe_launches = phase_probe()
+  log("(f) card")
   tf32 = torch.backends.cuda.matmul.allow_tf32
   check(not tf32, "TF32 matmuls are on")
   log(f"  torch.backends.cuda.matmul.allow_tf32={tf32}; torch "
@@ -453,14 +542,26 @@ def main():
   main = timings["[6144,128,128] p=4"]
   log(json.dumps({"main_path": {"build_s": build_s, "step_ms": step_ms,
                                 "peak_bytes": peak},
-                  "newton_root_timings": timings}))
+                  "newton_root_timings": timings,
+                  "matmul_chain_timing": chain}))
   log(json.dumps({"kernels": [{
-      "name": "newton_root", "route": "cuda", "source": KERNEL_SOURCE,
-      "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
-      "ms": main["ms"], "plain_ms": main["plain_ms"],
+      "name": "newton_root", "route": "cuda", "source": SOURCES["newton_root"],
+      "replaces": REPLACES["newton_root"], "launches": launches,
+      "max_abs_err": max_err, "ms": main["ms"], "plain_ms": main["plain_ms"],
       "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
       # No single PyTorch call computes a batched inverse p-th root.
-      "library_ms": None, "path": main["path"]}]}))
+      "library_ms": None, "path": main["path"],
+      "driven_by": "distributed_shampoo, 5 steps"}, {
+      "name": "matmul_chain", "route": "cuda",
+      "source": SOURCES["matmul_chain"],
+      "replaces": REPLACES["matmul_chain"],
+      "launches": probe_launches["matmul_chain"],
+      "max_abs_err": chain["max_abs_err"], "ms": chain["ms"],
+      "plain_ms": chain["plain_ms"], "bound_ms": chain["bound_ms"],
+      "bound_by": chain["bound_by"],
+      # No single PyTorch call computes the renormalised chain.
+      "library_ms": None, "path": chain["path"],
+      "driven_by": "tile_breakdown.measure, [712|6144,128,128] p=4"}]}))
   log(smi)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain-PyTorch twin, on a card.
+"""The port's CUDA kernels against their plain-PyTorch twins, on a card.
 
 Every test here needs a CUDA GPU and skips without one.  The file imports
 torch alone, so it also runs where JAX is not installed:
@@ -7,12 +7,16 @@ torch alone, so it also runs where JAX is not installed:
 
 Tolerances: roots rtol 1e-3 / atol 1e-5 (the JAX package's own kernel
 tolerance, `tests/test_pallas_kernels.py:59`; both sides are f32 with sums
-in other orders), ladder rounds equal, iterations within 1.
+in other orders), ladder rounds equal, iterations within 1.  The matmul
+chain is held to its twin at the same rtol 1e-3 / atol 1e-5.  The Newton
+tests above it also guard the resident product code that both kernels
+share (`csrc/resident_gemm.cuh`).
 """
 
 import pytest
 import torch
 
+from precondition_tpu_torch.ops.kernels import matmul_chain
 from precondition_tpu_torch.ops.kernels import newton_root
 from precondition_tpu_torch.optim import shampoo
 
@@ -149,3 +153,29 @@ def test_shampoo_update_on_the_card_matches_the_cpu_path(dev):
     ref = results["cpu"][0][n]
     torch.testing.assert_close(results[str(dev)][0][n].cpu(), ref, rtol=1e-3,
                                atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("p", [2, 4])
+@pytest.mark.parametrize("n", [1, 133])
+@pytest.mark.parametrize("m", [16, 96, 127, 128])
+def test_matmul_chain_matches_twin(dev, m, n, p):
+  # 133 members over 132 SMs: one CTA takes a second member.
+  stats = _psd(n, m, dev)
+  before = matmul_chain.LAUNCHES
+  got = matmul_chain.matmul_chain_cuda(stats, p, 8)
+  assert matmul_chain.LAUNCHES == before + 1
+  want = matmul_chain.matmul_chain_plain(stats, p, 8)
+  torch.cuda.synchronize()
+  assert bool(torch.isfinite(got).all())
+  torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-5)
+
+
+def test_matmul_chain_wrapper_rejects_what_the_kernel_does_not_take(dev):
+  with pytest.raises(ValueError, match="resident rule"):
+    matmul_chain.matmul_chain_cuda(_psd(2, 129, dev), 4, 1)
+  with pytest.raises(ValueError, match="resident rule"):
+    matmul_chain.matmul_chain_cuda(_psd(2, 16, dev), 6, 1)
+  with pytest.raises(ValueError, match="contiguous"):
+    matmul_chain.matmul_chain_cuda(_psd(2, 16, dev).transpose(1, 2), 4, 1)
+  with pytest.raises(TypeError, match="float32"):
+    matmul_chain.matmul_chain_cuda(_psd(2, 16, dev).double(), 4, 1)
