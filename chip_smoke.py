@@ -23,7 +23,14 @@ Phases, each of which raises on failure:
       transformer-shaped tree of the JAX package's bench.py (4 layers,
       d=1024, ff=4096, vocab 8192, block 128, RMSProp grafting), counting
       kernel launches, plus the same optimizer on the GPU against its CPU
-      path on a small tree;
+      path on small trees: the default one, and ragged ones under the
+      quantized, eigh, "xla" and detailed-metrics option sets;
+  (c2) the same five updates with best_effort_memory_usage_reduction
+      (int8 momenta, int16 per-block statistics and roots): two launches a
+      step, every root accepted, each step's update within 0.1 relative
+      Frobenius of (c)'s, the state's bytes within 0.1% of the JAX
+      package's shape count; step times, peak memory and the host cost of
+      decoding and encoding the per-block state;
   (d) `DistributedShampoo` training a width-1024 least-squares model;
   (e) the tile-breakdown probe (precondition_tpu_torch.probes.tile_breakdown)
       at the JAX script's [712,128,128] p=4 and at the main path's
@@ -35,6 +42,7 @@ before it the kernels' JSON record, and the last line
 """
 
 import concurrent.futures
+import gc
 import json
 import math
 import re
@@ -51,6 +59,7 @@ from precondition_tpu_torch.ops.kernels import matmul_chain
 from precondition_tpu_torch.ops.kernels import newton_root
 from precondition_tpu_torch.optim import shampoo
 from precondition_tpu_torch.probes import tile_breakdown
+from precondition_tpu_torch.utils.quantization import QuantizedValue
 
 KERNELS = ("newton_root", "matmul_chain")
 SOURCES = {k: f"precondition_tpu_torch/csrc/{k}.cu" for k in KERNELS}
@@ -389,43 +398,164 @@ def bench_tree_shapes(d=1024, ff=4096, vocab=8192, layers=4):
   return shapes
 
 
+# The small trees of the GPU-against-CPU check: the default tree, then
+# ragged params, a [200,130] at block 128 (blocks 128 and 72 by 128 and 2)
+# and the JAX package's [10,6] at block 4 unmerged (tests/test_shampoo.py:
+# 78-90), under each option set of the legacy per-block layout.
+SMALL_TREES = (
+    ("default", {"w": (256, 384), "v": (128, 128), "norm": (256,)}, {}),
+    ("ragged, block 128", {"w": (256, 384), "r": (200, 130), "norm": (256,)},
+     {}),
+    ("ragged [10,6], block 4", {"w": (10, 6), "norm": (5,)},
+     dict(block_size=4, best_effort_shape_interpretation=False)),
+)
+SMALL_OPTIONS = (
+    ("quantized", dict(best_effort_memory_usage_reduction=True)),
+    ("eigh", dict(eigh=True)),
+    ("xla", dict(solver_backend="xla")),
+    ("detailed metrics", dict(generate_detailed_metrics=True)),
+)
+
+
 def small_tree_check(device):
   """The same optimizer on the GPU (kernel) and on the CPU (twin) from
-  the same small inputs: 3 updates must agree."""
-  shapes = {"w": (256, 384), "v": (128, 128), "norm": (256,)}
-  gen = torch.Generator().manual_seed(1)
-  params = {n: 0.1 * torch.randn(s, generator=gen) for n, s in shapes.items()}
-  grads = [{n: 0.1 * torch.randn(s, generator=gen) for n, s in shapes.items()}
-           for _ in range(3)]
-  out = {}
-  for dev in ("cpu", device):
-    opt = shampoo.distributed_shampoo(**HYPERS)
-    p = {n: x.to(dev) for n, x in params.items()}
-    state = opt.init(p)
-    for g in grads:
-      upd, state = opt.update({n: x.to(dev) for n, x in g.items()}, state, p)
-      p = {n: p[n] + upd[n] for n in p}
-    out[dev] = p
-  worst = 0.0
-  for n in shapes:
-    got, ref = out[device][n].cpu(), out["cpu"][n]
-    worst = max(worst, (got - ref).abs().max().item())
-    check(torch.allclose(got, ref, rtol=1e-3, atol=1e-4 * ref.abs().max()),
-          f"small tree: GPU and CPU paths disagree on {n}")
-  log(f"  small tree, 3 updates: GPU (kernel) against CPU (twin) max |diff| "
-      f"{worst:.3e}")
+  the same small inputs: 3 updates must agree, on the default tree and on
+  the ragged trees under every option set (updates rtol 1e-3 / atol 1e-4 *
+  max|x|; 2 * max|x| / 127 quantized, where an int8 code may round the
+  other way on one side)."""
+  runs = [(SMALL_TREES[0][0], SMALL_TREES[0][1], {})]
+  runs += [(f"{tree}, {label}", shapes, {**base, **options})
+           for tree, shapes, base in SMALL_TREES[1:]
+           for label, options in SMALL_OPTIONS]
+  for label, shapes, options in runs:
+    gen = torch.Generator().manual_seed(1)
+    params = {n: 0.1 * torch.randn(s, generator=gen)
+              for n, s in shapes.items()}
+    grads = [{n: 0.1 * torch.randn(s, generator=gen)
+              for n, s in shapes.items()} for _ in range(3)]
+    out = {}
+    launches = newton_root.LAUNCHES
+    for dev in ("cpu", device):
+      opt = shampoo.distributed_shampoo(**{**HYPERS, **options})
+      p = {n: x.to(dev) for n, x in params.items()}
+      state = opt.init(p)
+      for g in grads:
+        upd, state = opt.update({n: x.to(dev) for n, x in g.items()}, state,
+                                p)
+        p = {n: p[n] + upd[n] for n in p}
+      out[dev] = p
+      errors = torch.cat([ps.training_metrics.error
+                          for ps in state.stats.values()])
+      check(errors.max().item() < 0.1,
+            f"small tree ({label}) on {dev}: the failure gate rejected roots")
+    launches = newton_root.LAUNCHES - launches
+    kernel = not options.get("eigh") and options.get("solver_backend") != "xla"
+    check(launches == (6 if kernel else 0),
+          f"small tree ({label}): {launches} kernel launches")
+    quantized = options.get("best_effort_memory_usage_reduction", False)
+    worst = 0.0
+    for n in shapes:
+      got, ref = out[device][n].cpu(), out["cpu"][n]
+      worst = max(worst, (got - ref).abs().max().item())
+      scale = ref.abs().max()
+      check(torch.allclose(got, ref, rtol=1e-3,
+                           atol=2 * scale / 127 if quantized
+                           else 1e-4 * scale),
+            f"small tree ({label}): GPU and CPU paths disagree on {n}")
+    log(f"  small tree ({label}), 3 updates: GPU "
+        f"({'kernel' if kernel else 'torch solver'}) against CPU max |diff| "
+        f"{worst:.3e}, {launches} kernel launches")
+
+
+def state_bytes(state):
+  """Bytes of the optimizer state's tensors: sum of numel * element_size."""
+  tree = shampoo.state_to_tree(state)
+
+  def walk(x):
+    if isinstance(x, torch.Tensor):
+      return x.numel() * x.element_size()
+    if isinstance(x, dict):
+      return sum(walk(v) for v in x.values())
+    if isinstance(x, list):
+      return sum(walk(v) for v in x)
+    return 0
+
+  return walk(tree)
+
+
+def bench_fixture(device, **tree):
+  """The bench tree's parameters and a source of its gradients, from the
+  seed 0 on the card; the same calls give the same numbers."""
+  gen = torch.Generator(device=device).manual_seed(0)
+  shapes = bench_tree_shapes(**tree)
+  params = {n: 0.02 * torch.randn(s, generator=gen, device=device)
+            for n, s in shapes.items()}
+  grads = lambda: {n: 0.01 * torch.randn(s, generator=gen, device=device)
+                   for n, s in shapes.items()}
+  return params, grads
+
+
+def run_steps(label, opt, params, grads, steps, reference=None):
+  """Initializes the state, resets the peak-memory counter and runs
+  ``steps`` updates with the roots every step; checks the launches, the
+  updates and the failure gate, and with ``reference`` (a list of each
+  step's updates on the host) each step's relative Frobenius difference
+  from it.  Returns (updates on the host, step seconds, state, max rel
+  diff, max root error, bytes held before the steps, peak bytes)."""
+  state = opt.init(params)
+  torch.cuda.synchronize()
+  base = torch.cuda.memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
+  times, kept, rel_worst = [], [], 0.0
+  newton_root.LAUNCHES = matmul_chain.LAUNCHES = 0
+  for step in range(steps):
+    g = grads()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    updates, state = opt.update(g, state, params)
+    torch.cuda.synchronize()
+    times.append(time.perf_counter() - start)
+    launches = newton_root.LAUNCHES
+    check(launches == 2 * (step + 1),
+          f"{label} step {step}: {launches} kernel launches, expected "
+          f"{2 * (step + 1)}")
+    for n, u in updates.items():
+      check(u.shape == params[n].shape and bool(torch.isfinite(u).all()),
+            f"{label} step {step}: update of {n} is not finite or has a "
+            "wrong shape")
+      params[n] += u
+    errors = torch.cat([ps.training_metrics.error
+                        for ps in state.stats.values()])
+    check(not bool(torch.isnan(errors).any())
+          and errors.max().item() < 0.1,  # inverse_failure_threshold
+          f"{label} step {step}: the failure gate rejected roots (max error "
+          f"{errors.max().item()})")
+    host = {n: u.cpu() for n, u in updates.items()}
+    if reference is not None:
+      num = sum(float((host[n] - reference[step][n]).square().sum())
+                for n in host)
+      den = sum(float(reference[step][n].square().sum()) for n in host)
+      rel = math.sqrt(num / den)
+      check(rel < 0.1, f"{label} step {step}: update differs from the f32 "
+            f"run's by {rel:.3e} (relative Frobenius)")
+      rel_worst = max(rel_worst, rel)
+    else:
+      kept.append(host)
+  check(matmul_chain.LAUNCHES == 0,
+        f"{label}: the matmul chain ran on the optimizer's path")
+  return (kept, times, state, rel_worst, errors.max().item(), base,
+          torch.cuda.max_memory_allocated())
 
 
 def phase_main_path(device, steps=5, **tree):
   log("(c) main path: distributed_shampoo on the bench fixture")
   small_tree_check(device)
-  gen = torch.Generator(device=device).manual_seed(0)
-  shapes = bench_tree_shapes(**tree)
-  params = {n: 0.02 * torch.randn(s, generator=gen, device=device)
-            for n, s in shapes.items()}
+  params, grads = bench_fixture(device, **tree)
   n_params = sum(p.numel() for p in params.values())
   opt = shampoo.distributed_shampoo(**HYPERS)
-  state = opt.init(params)
+  updates, times, state, _, max_error, _, peak = run_steps(
+      "(c)", opt, params, grads, steps)
+  launches = newton_root.LAUNCHES
   census = {}
   for name, ps in state.stats.items():
     p = 2 * len(ps.statistics)
@@ -434,42 +564,132 @@ def phase_main_path(device, steps=5, **tree):
   log(f"  {n_params / 1e6:.1f}M parameters; statistics per exponent "
       f"{dict(sorted(census.items()))} of size "
       f"[{HYPERS['block_size']},{HYPERS['block_size']}]")
-  torch.cuda.synchronize()
-  torch.cuda.reset_peak_memory_stats(device)
-  times = []
-  newton_root.LAUNCHES = matmul_chain.LAUNCHES = 0
-  for step in range(steps):
-    grads = {n: 0.01 * torch.randn(s, generator=gen, device=device)
-             for n, s in shapes.items()}
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    updates, state = opt.update(grads, state, params)
-    torch.cuda.synchronize()
-    times.append(time.perf_counter() - start)
-    launches = newton_root.LAUNCHES
-    check(launches == 2 * (step + 1),
-          f"step {step}: {launches} kernel launches, expected "
-          f"{2 * (step + 1)}")
-    for n, u in updates.items():
-      check(u.shape == params[n].shape and bool(torch.isfinite(u).all()),
-            f"step {step}: update of {n} is not finite or has a wrong shape")
-      params[n] += u
-    errors = torch.cat([ps.training_metrics.error
-                        for ps in state.stats.values()])
-    check(not bool(torch.isnan(errors).any())
-          and errors.max().item() < 0.1,  # inverse_failure_threshold
-          f"step {step}: the failure gate rejected roots (max error "
-          f"{errors.max().item()})")
-  launches = newton_root.LAUNCHES
-  check(matmul_chain.LAUNCHES == 0,
-        "the matmul chain ran on the optimizer's path")
-  peak = torch.cuda.max_memory_allocated(device)
+  profiled = profile_step(opt, state, params, grads)
   median_ms = 1e3 * float(np.median(times[1:]))
+  nbytes = state_bytes(state)
   log(f"  {steps} steps: kernel launches {launches}; step times "
       f"{[round(1e3 * t, 3) for t in times]} ms; median after step 1 "
       f"{median_ms:.3f} ms; peak memory {peak / 2**30:.3f} GiB; "
-      f"max root error {errors.max().item():.3e}")
-  return launches, median_ms, peak
+      f"state {nbytes} B; max root error {max_error:.3e}")
+  log(f"  one more step under torch.profiler: {json.dumps(profiled)}")
+  return dict(launches=launches, step_ms=median_ms, peak_bytes=peak,
+              state_bytes=nbytes, profiled_step=profiled), updates
+
+
+# Optimizer-state bytes of the JAX package on the bench tree, counted from
+# its state's shapes and dtypes (benchmarks/quantized_probe.py,
+# STEP_BREAKDOWN_TPU.json): f32 and memory-reduced, without training
+# metrics.  The port's must agree within 0.1%.
+JAX_STATE_BYTES = {"f32": 1514.2e6, "quantized": 770.0e6}
+
+
+SCOPES = ("ShampooStatistics", "ShampooRootSolve", "ShampooPrecondition")
+
+
+def profile_step(opt, state, params, grads):
+  """One more update under `torch.profiler`: the host ms of each of the
+  optimizer's three scopes, the kernels' device ms in all, and the
+  step's wall ms (inflated by the profiler)."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  g = grads()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    start = time.perf_counter()
+    opt.update(g, state, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+  events = prof.key_averages()
+  out = {"wall_ms": 1e3 * wall}
+  for e in events:
+    if e.key in SCOPES and e.device_type == DeviceType.CPU:
+      out[f"{e.key}_host_ms"] = e.cpu_time_total / 1e3
+  # Device events other than the scopes' own spans: kernels, copies, sets.
+  out["kernels_ms"] = sum(e.self_device_time_total for e in events
+                          if e.device_type == DeviceType.CUDA
+                          and e.key not in SCOPES) / 1e3
+  return out
+
+
+# Repetitions of each timed decode and encode of the per-block state.
+CODEC_REPS = 3
+
+
+def host_codec_ms(state):
+  """Host-clock ms to decode every legacy statistic of ``state`` in
+  equal-shape groups (stack, decode) and to encode them back (encode,
+  split into per-block entries), as the optimizer does each step."""
+  groups = {}
+  for ps in state.stats.values():
+    for q in ps.statistics:
+      groups.setdefault(tuple(q.shape), []).append(q)
+  decode = lambda: [QuantizedValue.stack(g).to_float()
+                    for g in groups.values()]
+  encode = lambda fs: [QuantizedValue.from_float_value(
+      f, torch.int16, extract_diagonal=True, batch_dims=1).unbind()
+                       for f in fs]
+  floats = decode()
+  torch.cuda.synchronize()
+  out = {}
+  for name, fn in (("decode", decode), ("encode", lambda: encode(floats))):
+    start = time.perf_counter()
+    for _ in range(CODEC_REPS):
+      fn()
+    torch.cuda.synchronize()
+    out[name] = 1e3 * (time.perf_counter() - start) / CODEC_REPS
+  out["entries"] = sum(len(g) for g in groups.values())
+  # A full collection of Python's garbage collector with the state alive:
+  # the per-block state is tens of thousands of tracked objects.
+  out["gc_objects"] = len(gc.get_objects())
+  start = time.perf_counter()
+  gc.collect()
+  out["gc_ms"] = 1e3 * (time.perf_counter() - start)
+  return out
+
+
+def phase_memory_reduced(device, reference, f32_bytes, steps=5, **tree):
+  """(c2): the bench fixture with best_effort_memory_usage_reduction, the
+  JAX package's benchmarks/quantized_probe.py configuration, on the same
+  parameters and gradients as (c)."""
+  log("(c2) memory-reduced main path: best_effort_memory_usage_reduction "
+      "on the bench fixture")
+  params, grads = bench_fixture(device, **tree)
+  opt = shampoo.distributed_shampoo(
+      **HYPERS, best_effort_memory_usage_reduction=True)
+  _, times, state, rel, max_error, base, peak = run_steps(
+      "(c2)", opt, params, grads, steps, reference=reference)
+  launches = newton_root.LAUNCHES
+  median_ms = 1e3 * float(np.median(times[1:]))
+  nbytes = state_bytes(state)
+  codec = host_codec_ms(state)
+  profiled = profile_step(opt, state, params, grads)
+  metric_bytes = sum(4 * 5 * ps.training_metrics.error.numel()
+                     for ps in state.stats.values())
+  for key, got in (("quantized", nbytes), ("f32", f32_bytes)):
+    want = JAX_STATE_BYTES[key]
+    check(abs(got - want) <= 1e-3 * want,
+          f"(c2) {key} state {got} B differs from the JAX count {want} B "
+          "by more than 0.1%")
+  log(f"  {steps} steps: kernel launches {launches}; step times "
+      f"{[round(1e3 * t, 3) for t in times]} ms; median after step 1 "
+      f"{median_ms:.3f} ms; peak memory {peak / 2**30:.3f} GiB, of which "
+      f"{base / 2**30:.3f} GiB were held before the steps; state "
+      f"{nbytes} B against (c)'s {f32_bytes} B (training metrics "
+      f"{metric_bytes} B of each; JAX shape count {JAX_STATE_BYTES['quantized']:.0f} and "
+      f"{JAX_STATE_BYTES['f32']:.0f} B without them); max relative "
+      f"Frobenius difference from (c)'s updates {rel:.3e}; max root error "
+      f"{max_error:.3e}; host decode of the {codec['entries']} statistics "
+      f"{codec['decode']:.1f} ms, encode {codec['encode']:.1f} ms; a full "
+      f"garbage collection over {codec['gc_objects']} objects "
+      f"{codec['gc_ms']:.1f} ms")
+  log(f"  one more step under torch.profiler: {json.dumps(profiled)}")
+  return dict(profiled_step=profiled, launches=launches, step_ms=median_ms,
+              step_times_ms=[1e3 * t for t in times], peak_bytes=peak,
+              base_bytes=base, state_bytes=nbytes, f32_state_bytes=f32_bytes,
+              metric_bytes=metric_bytes, max_rel_update_diff=rel,
+              host_decode_ms=codec["decode"], host_encode_ms=codec["encode"],
+              gc_objects=codec["gc_objects"], gc_ms=codec["gc_ms"])
 
 
 def phase_trainer(device, width=1024, rows=4096, steps=20):
@@ -527,7 +747,10 @@ def main():
   pth_root.require_true_f32()
   build_s = phase_build()
   max_err, timings, chain = phase_kernel(device)
-  launches, step_ms, peak = phase_main_path(device)
+  main_path, f32_updates = phase_main_path(device)
+  reduced = phase_memory_reduced(device, f32_updates,
+                                 main_path["state_bytes"])
+  del f32_updates
   phase_trainer(device)
   probe_launches = phase_probe()
   log("(f) card")
@@ -540,18 +763,20 @@ def main():
        "--format=csv,noheader"], capture_output=True, text=True, check=True,
       timeout=60).stdout.strip().splitlines()[0]
   main = timings["[6144,128,128] p=4"]
-  log(json.dumps({"main_path": {"build_s": build_s, "step_ms": step_ms,
-                                "peak_bytes": peak},
+  log(json.dumps({"main_path": {"build_s": build_s, **main_path},
+                  "memory_reduced": reduced,
                   "newton_root_timings": timings,
                   "matmul_chain_timing": chain}))
   log(json.dumps({"kernels": [{
       "name": "newton_root", "route": "cuda", "source": SOURCES["newton_root"],
-      "replaces": REPLACES["newton_root"], "launches": launches,
+      "replaces": REPLACES["newton_root"],
+      "launches": main_path["launches"] + reduced["launches"],
       "max_abs_err": max_err, "ms": main["ms"], "plain_ms": main["plain_ms"],
       "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
       # No single PyTorch call computes a batched inverse p-th root.
       "library_ms": None, "path": main["path"],
-      "driven_by": "distributed_shampoo, 5 steps"}, {
+      "driven_by": "distributed_shampoo, 5 steps; the same with "
+                   "best_effort_memory_usage_reduction, 5 steps"}, {
       "name": "matmul_chain", "route": "cuda",
       "source": SOURCES["matmul_chain"],
       "replaces": REPLACES["matmul_chain"],

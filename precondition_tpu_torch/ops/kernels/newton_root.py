@@ -128,10 +128,7 @@ def batched_inverse_pth_root_plain(
   warm = prevs is not None
   if warm:
     prev = prevs.to(f32) * valid
-    mat_c = pth_root.mat_power(prev, p // 2)
-    cmc = torch.bmm(mat_c, torch.bmm(mat, mat_c))
-    cmc = 0.5 * (cmc + cmc.transpose(1, 2))
-    cc = torch.bmm(mat_c, mat_c)
+    cmc, cc = pth_root.warm_start_products(mat, prev, p)
     total_rounds = num_tries + 1
   else:
     total_rounds = num_tries
@@ -142,9 +139,7 @@ def batched_inverse_pth_root_plain(
     for _ in range(num_iters):
       if not bool(active.any()):
         break
-      mat_t = (1.0 + inv_p) * eye + (-inv_p) * mat_m
-      new_m = torch.bmm(pth_root.mat_power(mat_t, p), mat_m)
-      new_h = torch.bmm(mat_h, mat_t)
+      new_m, new_h = pth_root.newton_step(mat_m, mat_h, eye, p)
       new_error = rowmax((new_m - eye).abs())
       ratio = new_error / torch.clamp(error, min=1e-30)
       # A divergent step is rejected: (H, error) keep the last good pair.

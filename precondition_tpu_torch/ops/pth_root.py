@@ -1,10 +1,12 @@
-"""Inverse p-th root helpers on the optimizer's main path.
+"""Matrix inverse p-th roots: the batched solvers and their helpers.
 
-PyTorch counterpart of the main-path subset of
-`precondition_tpu/ops/pth_root.py`: the solver's metrics record, the
-padding mask, the static-exponent matrix power and a batched power
-iteration.  The coupled-Newton solve itself lives in
-`ops/kernels/newton_root.py`.
+PyTorch counterpart of `precondition_tpu/ops/pth_root.py` without its
+LOBPCG deflation: the solver's metrics record, the padding masks, the
+static-exponent matrix power, a batched power iteration, and two batched
+solvers of ``(A + eps I)^{-1/p}`` over a ``[N, m, m]`` stack,
+`batched_inverse_pth_root` (the JAX package's per-matrix coupled Newton,
+`matrix_inverse_pth_root` under `vmap`) and its ``eigh=True`` form.  The
+Newton-root kernel and its twin live in `ops/kernels/newton_root.py`.
 """
 
 from __future__ import annotations
@@ -14,7 +16,11 @@ from typing import Optional, Tuple
 
 import torch
 
+from precondition_tpu_torch.utils.diagnostics import InversePthRootDiagnostics
+
 _EPSILON = 1e-25
+_METRIC_FIELDS = ("error", "iterations", "error_ratio", "max_eigenvalue",
+                  "retries")
 # Seed of the power iteration's start vector.  The JAX package draws it
 # from `jax.random.PRNGKey(1729)`; torch cannot reproduce those bits, so
 # callers that need JAX's exact vector pass it as ``v0``.
@@ -27,7 +33,9 @@ class RootMetrics:
 
   The fields of the JAX package's `RootMetrics`: max entrywise error of
   ``M_k - I``, Newton iterations, final error ratio, the top eigenvalue
-  that scaled the ridge, and how many ridge rounds ran.
+  that scaled the ridge, and how many ridge rounds ran.  The entrywise
+  residual report ``inverse_pth_root_diagnostics`` is None unless asked
+  for (`generate_detailed_metrics`), where JAX holds a `MaskedNode`.
   """
 
   error: torch.Tensor
@@ -35,17 +43,33 @@ class RootMetrics:
   error_ratio: torch.Tensor
   max_eigenvalue: torch.Tensor
   retries: torch.Tensor
+  inverse_pth_root_diagnostics: Optional[InversePthRootDiagnostics] = None
+
+  @classmethod
+  def zeros(cls, n: int, detailed: bool = False, device=None
+            ) -> "RootMetrics":
+    """``[n]`` metrics of zeros, with a zero residual report if
+    ``detailed``."""
+    fields = torch.zeros((5, n), dtype=torch.float32, device=device)
+    return cls(*fields, inverse_pth_root_diagnostics=(
+        InversePthRootDiagnostics.zeros(n, device) if detailed else None))
 
   def map(self, fn) -> "RootMetrics":
-    """Apply ``fn`` to every field."""
-    return RootMetrics(**{f.name: fn(getattr(self, f.name))
-                          for f in dataclasses.fields(self)})
+    """Apply ``fn`` to every field, the diagnostics' included."""
+    diag = self.inverse_pth_root_diagnostics
+    return RootMetrics(
+        **{f: fn(getattr(self, f)) for f in _METRIC_FIELDS},
+        inverse_pth_root_diagnostics=None if diag is None else diag.map(fn))
 
   @staticmethod
   def cat(parts) -> "RootMetrics":
-    return RootMetrics(**{
-        f.name: torch.cat([getattr(p, f.name) for p in parts])
-        for f in dataclasses.fields(RootMetrics)})
+    diags = [p.inverse_pth_root_diagnostics for p in parts]
+    return RootMetrics(
+        **{f: torch.cat([getattr(p, f) for p in parts])
+           for f in _METRIC_FIELDS},
+        inverse_pth_root_diagnostics=(
+            None if diags[0] is None
+            else InversePthRootDiagnostics.cat(diags)))
 
 
 def require_true_f32() -> None:
@@ -73,6 +97,15 @@ def _padding_mask(n: int, padding_start, dtype, device=None) -> torch.Tensor:
   return (idx < padding_start).to(dtype)
 
 
+def _mask_matrix(matrix: torch.Tensor, padding_starts: torch.Tensor):
+  """Zeroes rows and columns ``>= padding_starts`` of a ``[N, m, m]`` batch;
+  returns ``(masked matrices, masked identities, [N, m] mask)``."""
+  mask = _padding_mask(matrix.shape[-1], padding_starts, matrix.dtype,
+                       matrix.device)
+  matrix = matrix * mask[:, :, None] * mask[:, None, :]
+  return matrix, torch.diag_embed(mask), mask
+
+
 def mat_power(m: torch.Tensor, p: int) -> torch.Tensor:
   """``m**p`` for a static int ``p`` by square-and-multiply.
 
@@ -92,6 +125,24 @@ def mat_power(m: torch.Tensor, p: int) -> torch.Tensor:
     if bits:
       square = torch.matmul(square, square)
   return result
+
+
+def newton_step(mat_m: torch.Tensor, mat_h: torch.Tensor, eye: torch.Tensor,
+                p: int) -> Tuple[torch.Tensor, torch.Tensor]:
+  """One coupled-Newton step on a batch: ``T = (1 + 1/p) I - M / p``, then
+  ``M <- T^p M`` and ``H <- H T``."""
+  inv_p = 1.0 / p
+  mat_t = (1.0 + inv_p) * eye + (-inv_p) * mat_m
+  return torch.bmm(mat_power(mat_t, p), mat_m), torch.bmm(mat_h, mat_t)
+
+
+def warm_start_products(mat: torch.Tensor, prev: torch.Tensor, p: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """``(C A C, C C)`` with ``C = prev^{p/2}``: the warm start's problem is
+  ``C (A + r I) C = CAC + r CC`` for whichever ridge r a round takes."""
+  mat_c = mat_power(prev, p // 2)
+  cmc = torch.bmm(mat_c, torch.bmm(mat, mat_c))
+  return 0.5 * (cmc + cmc.transpose(1, 2)), torch.bmm(mat_c, mat_c)
 
 
 def default_v0(n: int, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -151,3 +202,238 @@ def power_iteration(
   v = v / torch.clamp(torch.linalg.vector_norm(v, dim=1, keepdim=True),
                       min=_EPSILON)
   return v, ev
+
+
+def _rowmax_abs(x: torch.Tensor) -> torch.Tensor:
+  """``max |x|`` per member of a ``[N, m, m]`` batch; propagates NaN."""
+  return x.abs().amax(dim=(1, 2))
+
+
+def batched_inverse_pth_root(
+    stats: torch.Tensor,
+    p: int,
+    padding_starts: Optional[torch.Tensor] = None,
+    prevs: Optional[torch.Tensor] = None,
+    *,
+    num_iters: int = 100,
+    ridge_epsilon: float = 1e-6,
+    error_tolerance: float = 1e-6,
+    relative_matrix_epsilon: bool = True,
+    eigh: bool = False,
+    retry_loop_error_threshold: float = 0.05,
+    num_tries: int = 6,
+    max_error_ratio: float = 1.2,
+    warm_error_threshold: float = 0.05,
+    generate_diagnostics: bool = False,
+    cold_power_iteration_tolerance: Optional[float] = None,
+) -> Tuple[torch.Tensor, RootMetrics]:
+  """``(A + eps I)^{-1/p}`` for every member of a ``[N, m, m]`` PSD batch.
+
+  The JAX package's `batched_inverse_pth_root`: its per-matrix
+  `matrix_inverse_pth_root` (coupled Newton, or `eigh` with ``eigh=True``)
+  under `vmap`, here one batched loop in which each member leaves on its
+  own, as a vmapped while-loop lets it.  ``p`` is a static int.
+
+  * The ridge is ``ridge_epsilon * max(lambda_max, 1e-25)``, lambda_max
+    from an in-solver power iteration: for a cold solve with the tight
+    absolute 1e-6 exit, or a loose relative one at
+    ``cold_power_iteration_tolerance`` when given (the JAX module knob
+    `COLD_POWER_ITERATION_TOLERANCE`); for a warm solve with a loose
+    relative 1% exit.
+  * Newton from ``M0 = z (A + rI)``, ``z = (1 + p) / (2 |A + rI|_F)``,
+    ``H0 = z^{1/p} I``, one step between exit tests (the JAX knob
+    `DEFAULT_NEWTON_UNROLL` at its default; in eager PyTorch unrolling only
+    thins the exit tests); a member stops when its error is at most
+    ``error_tolerance``, after ``num_iters`` steps, or once a test finds
+    its error ratio ``>= max_error_ratio``.
+  * A member whose error stays above ``retry_loop_error_threshold`` retries
+    with the ridge x10, ``num_tries`` rounds in all.
+  * With ``prevs`` and an even p, round 0 first tries the certified warm
+    start ``C (A + rI) C``, ``C = prev^{p/2}``, one extra round.
+  * ``padding_starts`` masks each member to its valid size; a member of
+    size 0 returns zeros with error 0.
+
+  Where this differs from the Newton-root kernel and its twin
+  (`ops/kernels/newton_root.py`), which port the Pallas kernel's own
+  semantics; both share `newton_step` and `warm_start_products`:
+  * a divergent step is taken, then undone: the root is the iterate from
+    before it, but the error, error ratio and iteration count are those of
+    the divergent step, so such a member may retry where the kernel stops;
+  * the ridge's lambda_max comes from this solver's own power iteration
+    (the kernel takes the optimizer's, always at the loose 1% exit);
+  * ``error_ratio`` is reported (the kernel reports 0);
+  * ridges grow by exact powers of ten, norms are floored at 1e-25;
+  * a cold root is not symmetrised, and with ``prevs`` every round's root
+    is (the kernel symmetrises cold roots, and warm ones only where the
+    warm start was taken);
+  * ``m == 1`` is solved in closed form with zero metrics.
+
+  Returns:
+    ``(roots [N, m, m] in stats.dtype, RootMetrics with [N] fields)``;
+    with ``generate_diagnostics`` the metrics carry the entrywise residual
+    report against the ridge of the round that produced each root.
+  """
+  if stats.dim() != 3 or stats.shape[1] != stats.shape[2]:
+    raise ValueError(f"expected a [N, m, m] batch, got {tuple(stats.shape)}")
+  if not isinstance(p, int) or p < 1:
+    raise ValueError(f"p must be a positive int, got {p!r}")
+  n, m, _ = stats.shape
+  dev, f32 = stats.device, torch.float32
+  if padding_starts is None:
+    padding_starts = torch.full((n,), m, dtype=torch.int32, device=dev)
+  mat, eye, mask = _mask_matrix(stats.to(f32), padding_starts)
+  if eigh:
+    roots, metrics = _eigh_roots(mat, eye, mask, padding_starts, p,
+                                 ridge_epsilon, error_tolerance,
+                                 relative_matrix_epsilon,
+                                 generate_diagnostics)
+    return roots.to(stats.dtype), metrics
+  warm = prevs is not None and p % 2 == 0
+
+  if relative_matrix_epsilon:
+    loose = warm or cold_power_iteration_tolerance is not None
+    tol = 1e-2 if warm else (cold_power_iteration_tolerance or 1e-6)
+    max_ev = power_iteration(mat, num_iters=100, error_tolerance=tol,
+                             padding_starts=padding_starts,
+                             relative_tolerance=loose)[1]
+  else:
+    max_ev = torch.ones((n,), dtype=f32, device=dev)
+  ridge = ridge_epsilon * torch.clamp(max_ev, min=_EPSILON)
+  zeros = torch.zeros((n,), dtype=f32, device=dev)
+
+  if m == 1:
+    root = (mat + ridge[:, None, None]) ** (-1.0 / p)
+    error, iters, ratio, retries = zeros, zeros, zeros, zeros
+  else:
+    if warm:
+      prev_w = prevs.to(f32) * mask[:, :, None] * mask[:, None, :]
+      cmc, cc = warm_start_products(mat, prev_w, p)
+      total_rounds = num_tries + 1
+    else:
+      total_rounds = num_tries
+
+    def newton(m0, h0, err0, active):
+      """One round's Newton phase for the ``active`` members."""
+      i = torch.zeros((n,), dtype=torch.int64, device=dev)
+      mat_m, mat_h, old_h, error = m0, h0, h0, err0
+      ratio = torch.ones((n,), dtype=f32, device=dev)
+      active = active & (error > error_tolerance) & (ratio < max_error_ratio)
+      # One host sync per test for the loop exit, as the vmapped
+      # while-loop evaluates its batched predicate once per trip.
+      while bool(active.any()):
+        new_m, new_h = newton_step(mat_m, mat_h, eye, p)
+        new_error = _rowmax_abs(new_m - eye)
+        a3 = active[:, None, None]
+        old_h = torch.where(a3, mat_h, old_h)
+        mat_m = torch.where(a3, new_m, mat_m)
+        mat_h = torch.where(a3, new_h, mat_h)
+        ratio = torch.where(active, new_error / error, ratio)
+        error = torch.where(active, new_error, error)
+        i = i + active
+        active = (active & (i < num_iters) & (error > error_tolerance)
+                  & (ratio < max_error_ratio))
+      return i.to(f32), mat_m, mat_h, old_h, ratio
+
+    root = eye.clone()
+    error = torch.full((n,), 1000.0, dtype=f32, device=dev)
+    iters = torch.full((n,), 100.0, dtype=f32, device=dev)
+    ratio = torch.ones((n,), dtype=f32, device=dev)
+    retries = zeros
+    failed = torch.ones((n,), dtype=torch.bool, device=dev)
+    for rnd in range(total_rounds):
+      if not bool(failed.any()):
+        break
+      ridge_i = ridge * float(10.0 ** (max(rnd - 1, 0) if warm else rnd))
+      damped = mat + ridge_i[:, None, None] * eye
+      fro = torch.linalg.vector_norm(damped, dim=(1, 2))
+      z = (1 + p) / (2 * torch.clamp(fro, min=_EPSILON))
+      m0 = damped * z[:, None, None]
+      h0 = eye * torch.pow(z, 1.0 / p)[:, None, None]
+      if warm:
+        m0_w = cmc + ridge_i[:, None, None] * cc
+        bound = m0_w.abs().sum(dim=-1).amax(dim=-1)
+        z_w = torch.clamp((1 + p) / (2 * torch.clamp(bound, min=_EPSILON)),
+                          max=1.0)
+        err0_w = _rowmax_abs(m0_w * z_w[:, None, None] - eye)
+        use_warm = ((err0_w <= warm_error_threshold) & (rnd == 0))[:, None,
+                                                                  None]
+        m0 = torch.where(use_warm, m0_w * z_w[:, None, None], m0)
+        h0 = torch.where(use_warm,
+                         prev_w * torch.pow(z_w, 1.0 / p)[:, None, None], h0)
+      err0 = _rowmax_abs(m0 - eye)
+      r_iters, mat_m, mat_h, old_h, r_ratio = newton(m0, h0, err0, failed)
+      r_error = _rowmax_abs(mat_m - eye)
+      converged = (r_ratio < max_error_ratio).to(f32)[:, None, None]
+      r_root = converged * mat_h + (1 - converged) * old_h
+      if warm:
+        r_root = 0.5 * (r_root + r_root.transpose(1, 2))
+      # Only members that entered this round adopt its results.
+      f3 = failed[:, None, None]
+      root = torch.where(f3, r_root, root)
+      error = torch.where(failed, r_error, error)
+      iters = torch.where(failed, r_iters, iters)
+      ratio = torch.where(failed, r_ratio, ratio)
+      retries = retries + failed.to(f32)
+      failed = failed & (r_error > retry_loop_error_threshold)
+
+  is_padding = padding_starts.to(dev) == 0
+  root = torch.where(is_padding[:, None, None], 0.0, root)
+  error = torch.where(is_padding, 0.0, error)
+  metrics = RootMetrics(error=error, iterations=iters, error_ratio=ratio,
+                        max_eigenvalue=max_ev.to(f32), retries=retries)
+  if generate_diagnostics:
+    # The ridge the ladder last solved at: a warm round 0 runs at the base
+    # ridge, cold round i at ridge * 10^i.
+    eff_pow = torch.clamp(retries - (2.0 if warm else 1.0), min=0.0)
+    damped = mat + (ridge * torch.pow(10.0, eff_pow))[:, None, None] * eye
+    diag = InversePthRootDiagnostics.create(root, damped, p, padding_starts)
+    metrics.inverse_pth_root_diagnostics = diag.map(
+        lambda x: torch.where(is_padding, 0.0, x))
+  return root.to(stats.dtype), metrics
+
+
+def _eigh_roots(mat, eye, mask, padding_starts, p, ridge_epsilon,
+                error_tolerance, relative_matrix_epsilon,
+                generate_diagnostics):
+  """The JAX package's `matrix_inverse_pth_root_eigh`, batched.
+
+  ``mat`` and ``eye`` are masked to each member's size.  Eigenvalues are
+  clamped at the ridge ``ridge_epsilon * max(lambda_max,
+  error_tolerance)``, the padding's zero eigenvalues map to zero, and the
+  root is ``R R^T`` with ``R = U sqrt(e^{-1/p})``, symmetric by
+  construction.  The error is ``max |U^T (A + rI) U - diag(e)|``.
+  """
+  n, m, _ = mat.shape
+  f32 = torch.float32
+  if relative_matrix_epsilon:
+    max_ev = power_iteration(mat, num_iters=100,
+                             error_tolerance=error_tolerance,
+                             padding_starts=padding_starts)[1]
+  else:
+    max_ev = torch.ones((n,), dtype=f32, device=mat.device)
+  ridge = (ridge_epsilon * torch.clamp(max_ev, min=error_tolerance)
+           )[:, None, None]
+  regularized = mat + ridge * eye
+  e, u = torch.linalg.eigh(regularized)
+  # eigh sorts ascending: the padding's zero eigenvalues come first.
+  flipped = mask.flip(-1)
+  e = e * flipped
+  inv_e = torch.where(e == 0.0, 0.0,
+                      torch.pow(torch.maximum(e, ridge[:, :, 0]), -1.0 / p))
+  sqrt_root = u * torch.sqrt(inv_e)[:, None, :]
+  root = torch.bmm(sqrt_root, sqrt_root.transpose(1, 2))
+  recovered = torch.bmm(u.transpose(1, 2), torch.bmm(regularized, u))
+  eig_err = (recovered - torch.diag_embed(e)) * flipped[:, None, :]
+  error = _rowmax_abs(eig_err)
+  is_padding = padding_starts.to(mat.device) == 0
+  root = torch.where(is_padding[:, None, None], 0.0, root)
+  error = torch.where(is_padding, 0.0, error)
+  zeros = torch.zeros((n,), dtype=f32, device=mat.device)
+  metrics = RootMetrics(error=error, iterations=zeros, error_ratio=zeros,
+                        max_eigenvalue=max_ev.to(f32), retries=zeros)
+  if generate_diagnostics:
+    diag = InversePthRootDiagnostics.create(root, regularized, p,
+                                            padding_starts)
+    metrics.inverse_pth_root_diagnostics = diag.map(
+        lambda x: torch.where(is_padding, 0.0, x))
+  return root, metrics

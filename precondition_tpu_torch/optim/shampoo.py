@@ -1,20 +1,26 @@
 """Distributed Shampoo on one device, in PyTorch.
 
-Port of the default, single-device mode of
-`precondition_tpu/optim/shampoo.py` with its per-axis stacked statistics
-layout.  For each parameter block ``G`` the optimizer keeps Kronecker-factor
-statistics per axis and preconditions with their inverse ``2k``-th roots,
-``k`` the number of preconditioned axes.  One update has three phases:
+Port of the single-device mode of `precondition_tpu/optim/shampoo.py`.  For
+each parameter block ``G`` the optimizer keeps Kronecker-factor statistics
+per axis and preconditions with their inverse ``2k``-th roots, ``k`` the
+number of preconditioned axes.  One update has three phases:
 
 1. statistics: the EMA of batched Gram products, one `torch.bmm` per
-   preconditioned axis on ``[nb, d, d]`` stacks;
+   preconditioned axis and group of equal-shape blocks;
 2. root solve: statistics gathered into one ``[N, m, m]`` batch per
-   exponent, one batched power iteration for the ridge's lambda_max, the
-   coupled-Newton solve (`ops/kernels/newton_root.py`: the CUDA kernel for
-   a CUDA tensor, its plain twin on the CPU) and a failure gate that keeps
+   exponent, then the solver ``solver_backend`` and ``eigh`` pick (by
+   default one batched power iteration for the ridge's lambda_max and the
+   coupled-Newton kernel, `ops/kernels/newton_root.py`: the CUDA kernel for
+   a CUDA tensor, its plain twin on the CPU), and a failure gate that keeps
    the old root where a solve failed;
 3. transform: grafting, the per-axis preconditioning contraction, the
    graft-norm rescale, momentum and Nesterov.
+
+State layouts (`Preconditioner`): uniform-block params keep per-axis
+``[nb, d, d]`` stacks; ragged params, and every param under
+``best_effort_memory_usage_reduction``, keep the JAX package's per-block
+lists, which that mode stores as int16 `QuantizedValue`s with an f32
+diagonal beside int8 momenta.
 
 `distributed_shampoo` returns the functional ``init``/``update`` pair with
 the JAX signature; `DistributedShampoo` wraps it as a
@@ -40,7 +46,9 @@ from torch.profiler import record_function
 from precondition_tpu_torch.ops import pth_root
 from precondition_tpu_torch.ops.kernels import newton_root
 from precondition_tpu_torch.ops.pth_root import RootMetrics
+from precondition_tpu_torch.utils import diagnostics
 from precondition_tpu_torch.utils import shapes as shape_utils
+from precondition_tpu_torch.utils.quantization import QuantizedValue
 
 _EPSILON = 1e-25
 
@@ -65,12 +73,18 @@ class PreconditionerType(enum.IntEnum):
 
 @dataclasses.dataclass
 class ParameterStats:
-  """Per-parameter Shampoo state (stacked layout)."""
+  """Per-parameter Shampoo state.
+
+  ``statistics`` and ``preconditioners`` hold one ``[nb, d, d]`` stack per
+  preconditioned axis (stacked layout) or one ``[d, d]`` entry per (block,
+  axis), block-major (legacy layout; `QuantizedValue`s in the quantized
+  mode, as are both momenta there).
+  """
   diagonal_statistics: Optional[torch.Tensor]  # grafting accumulator
-  statistics: List[torch.Tensor]       # per preconditioned axis [nb, d, d]
-  preconditioners: List[torch.Tensor]  # matching inverse roots
-  diagonal_momentum: torch.Tensor      # momentum of the grafting direction
-  momentum: torch.Tensor               # momentum of the preconditioned one
+  statistics: list                     # Kronecker factors
+  preconditioners: list                # matching inverse roots
+  diagonal_momentum: Union[torch.Tensor, QuantizedValue]  # grafting's
+  momentum: Union[torch.Tensor, QuantizedValue]  # the preconditioned one's
   training_metrics: Optional[RootMetrics]  # [num_statistics] fields
 
 
@@ -86,13 +100,31 @@ class GradientTransformation(NamedTuple):
 
 
 class _SolveChunk(NamedTuple):
-  """One ``[k, d, d]`` statistics stack inside an exponent's solve batch."""
-  name: str    # parameter
-  slot: int    # preconditioned axis of that parameter
-  k: int       # number of matrices
-  d: int       # (unpadded) matrix size
-  exp: int     # root exponent
-  start: int   # first global statistic index
+  """``k`` statistics of one param and one size in an exponent's batch."""
+  name: str              # parameter
+  slots: Tuple[int, ...]  # (axis,) of a stacked param; a legacy one's entries
+  d: int                 # (unpadded) matrix size
+  exp: int               # root exponent
+  indices: Tuple[int, ...]  # global statistic index of each matrix
+  stacked: bool
+
+  @property
+  def k(self) -> int:
+    return len(self.indices)
+
+
+def _is_stacked(mats) -> bool:
+  """Whether a param's matrix state is per-axis ``[nb, d, d]`` stacks."""
+  return (bool(mats) and not isinstance(mats[0], QuantizedValue)
+          and mats[0].dim() == 3)
+
+
+def _stack(entries) -> torch.Tensor:
+  return torch.stack(entries)
+
+
+def _unstack(stack: torch.Tensor) -> List[torch.Tensor]:
+  return list(stack.unbind(0))
 
 
 def _not_ported(option: str, item: str):
@@ -119,7 +151,18 @@ def _block_plan(shape, block_size, merge_block_size, best_effort,
 
 
 class Preconditioner:
-  """Per-parameter blocked Kronecker-factor engine (stacked layout)."""
+  """Per-parameter blocked Kronecker-factor engine.
+
+  Two state layouts, as in the JAX package.  The stacked layout keeps one
+  ``[nb, d, d]`` stack per preconditioned axis; it serves params whose
+  blocks are uniform, in the default (f32) mode.  The legacy per-block
+  layout keeps a list of ``[d, d]`` matrices, one per (block, axis) in
+  block-major order (``b * n_on + slot``); it serves ragged params and
+  every param in the quantized mode.  The legacy methods take group hooks:
+  ``to_float`` turns a list of equal-shape entries into one ``[B, d, d]``
+  float stack and ``from_float`` turns such a stack back into entries, so
+  a group is decoded and encoded in one call each.
+  """
 
   def __init__(self, param, block_size, merge_small_dims_block_size,
                best_effort_shape_interpretation,
@@ -134,6 +177,15 @@ class Preconditioner:
   def exponent_for_preconditioner(self) -> int:
     # root exponent p = 2 * number of Kronecker-factored axes.
     return 2 * sum(self._precond_dims)
+
+  def shapes_for_preconditioners(self) -> List[List[int]]:
+    """``[d, d]`` per (block, preconditioned axis), in partition order."""
+    return [[block[axis], block[axis]]
+            for block in self._partitioner.block_shapes()
+            for axis, on in enumerate(self._precond_dims) if on]
+
+  def num_statistics(self) -> int:
+    return len(self.shapes_for_preconditioners())
 
   def stacked_layout(self) -> bool:
     """Whether the blocks are uniform (no ragged trailing block)."""
@@ -177,6 +229,99 @@ class Preconditioner:
       g = torch.einsum("bi...,bij->b...j", g, preconditioners[slot])
       slot += 1
     merged = self._partitioner.merge_stacked(g)
+    return merged.reshape(self._original_shape)
+
+  def statistics_from_grad(self, grad) -> List[torch.Tensor]:
+    """Fresh (unweighted) Gram statistics ``G_(a) G_(a)^T`` per block/axis."""
+    reshaped = grad.reshape(self._transformed_shape)
+    out = []
+    for g in self._partitioner.partition(reshaped):
+      for axis, on in enumerate(self._precond_dims):
+        if on:
+          contracted = [i for i in range(g.dim()) if i != axis]
+          out.append(torch.tensordot(g, g, dims=(contracted, contracted)))
+    return out
+
+  def _block_groups(self, blocks):
+    """``{(block shape, axis): [(statistic index, block index), ...]}``."""
+    groups: Dict[tuple, List[Tuple[int, int]]] = {}
+    index = 0
+    for b, g in enumerate(blocks):
+      for axis, on in enumerate(self._precond_dims):
+        if on:
+          groups.setdefault((tuple(g.shape), axis), []).append((index, b))
+          index += 1
+    return groups
+
+  def updated_statistics_from_grad(self, stats, grad, w1, w2,
+                                   to_float=_stack, from_float=_unstack
+                                   ) -> list:
+    """EMA ``w1 * S + w2 * G_(a) G_(a)^T`` for every block/axis entry.
+
+    One batched Gram product per (block shape, axis) group, decoded with
+    ``to_float`` and encoded with ``from_float`` a group at a time.
+    """
+    reshaped = grad.reshape(self._transformed_shape)
+    uniform = self._partitioner.uniform_block_shape()
+    if uniform is not None:
+      # One reshape-permute blockifies every block; the groups are the axes.
+      gs = self._partitioner.partition_stacked(reshaped)
+      n_on = sum(self._precond_dims)
+      groups = {(uniform, axis): [(b * n_on + slot, b)
+                                  for b in range(gs.shape[0])]
+                for slot, axis in enumerate(
+                    a for a, on in enumerate(self._precond_dims) if on)}
+      take = lambda members: gs
+    else:
+      blocks = self._partitioner.partition(reshaped)
+      groups = self._block_groups(blocks)
+      take = lambda members: torch.stack([blocks[b] for _, b in members])
+    new_stats = [None] * len(stats)
+    for (shape, axis), members in groups.items():
+      gs_group = take(members)
+      flat = gs_group.movedim(axis + 1, 1).reshape(len(members), shape[axis],
+                                                   -1)
+      grams = torch.bmm(flat, flat.transpose(1, 2))
+      olds = to_float([stats[i] for i, _ in members])
+      for (i, _), new in zip(members, from_float(w1 * olds + w2 * grams)):
+        new_stats[i] = new
+    return new_stats
+
+  def preconditioned_grad(self, grad, preconditioners, to_float=_stack
+                          ) -> torch.Tensor:
+    """Apply the per-block roots, one batched contraction per axis for each
+    group of equal-shape blocks; ``to_float`` decodes a group's roots."""
+    reshaped = grad.reshape(self._transformed_shape)
+    n_per_block = sum(self._precond_dims)
+    uniform = self._partitioner.uniform_block_shape()
+    if uniform is not None:
+      blocks = None
+      g_groups = {uniform: (list(range(self._partitioner.num_blocks())),
+                            self._partitioner.partition_stacked(reshaped))}
+    else:
+      blocks = self._partitioner.partition(reshaped)
+      idxs_by_shape: Dict[tuple, List[int]] = {}
+      for b, blk in enumerate(blocks):
+        idxs_by_shape.setdefault(tuple(blk.shape), []).append(b)
+      g_groups = {shape: (idxs, torch.stack([blocks[b] for b in idxs]))
+                  for shape, idxs in idxs_by_shape.items()}
+    out_blocks = {}
+    for idxs, g in g_groups.values():
+      slot = 0
+      for on in self._precond_dims:
+        if not on:
+          g = g.movedim(1, -1)
+          continue
+        pres = to_float([preconditioners[b * n_per_block + slot]
+                         for b in idxs])
+        g = torch.einsum("bi...,bij->b...j", g, pres)
+        slot += 1
+      if blocks is None:
+        merged = self._partitioner.merge_stacked(g)
+        return merged.reshape(self._original_shape)
+      out_blocks.update(zip(idxs, g.unbind(0)))
+    merged = self._partitioner.merge_partitions(
+        [out_blocks[b] for b in range(len(blocks))])
     return merged.reshape(self._original_shape)
 
 
@@ -233,11 +378,18 @@ def distributed_shampoo(
 
   Arguments carry the JAX package's names and defaults.  ``precision`` and
   ``tensordot_precision`` must stay None: every product runs in true f32
-  (TF32 is switched off), which is the JAX package's HIGHEST.  The
-  ``lobpcg_max_iter`` and ``end_preconditioning_compute_steps`` values
-  only matter with the options they qualify, which raise.
+  (TF32 is switched off), which is the JAX package's HIGHEST.
+  ``lobpcg_max_iter`` only matters with LOBPCG, which raises.
+
+  ``solver_backend`` picks the Newton solver: "auto" and "pallas" take the
+  Newton-root kernel (`ops/kernels/newton_root.py`: the CUDA kernel for a
+  CUDA tensor, its plain twin on the CPU), with one batched power
+  iteration at a loose 1% exit for the ridge; "xla" takes the batched
+  solver `ops.pth_root.batched_inverse_pth_root`, the JAX package's
+  per-matrix solver.  ``eigh=True`` solves by eigendecomposition whatever
+  the backend.
   """
-  del lobpcg_max_iter, end_preconditioning_compute_steps
+  del lobpcg_max_iter
   unported = [
       (batch_axis_name is not None, "batch_axis_name", "8 (distribution)"),
       (statistics_partition_spec is not None
@@ -249,34 +401,31 @@ def distributed_shampoo(
       (compression_rank != 0 or frequent_directions or reset_preconditioner
        or average_grad, "compression and frequent directions",
        "9 (low-rank and FD roots)"),
-      (best_effort_memory_usage_reduction,
-       "best_effort_memory_usage_reduction", "7 (quantized state)"),
-      (generate_detailed_metrics or generate_fd_metrics,
-       "detailed and FD metrics", "7 (diagnostics)"),
-      (eigh, "eigh", "5a (rest of the default mode)"),
+      (generate_fd_metrics, "generate_fd_metrics",
+       "9 (low-rank and FD roots)"),
       (lobpcg_topk_precondition != 0, "LOBPCG deflation",
        "11 (LOBPCG)"),
-      (decay_preconditioning_compute_steps,
-       "decay_preconditioning_compute_steps",
-       "5a (rest of the default mode)"),
-      (solver_backend != "auto", f"solver_backend={solver_backend!r}",
-       "5a (rest of the default mode)"),
       (precision is not None or tensordot_precision is not None,
        "precision options (products always run in true f32)",
-       "5a (rest of the default mode)"),
+       "5a (refused: every product runs in true f32)"),
   ]
   for flag, option, item in unported:
     if flag:
       raise _not_ported(option, item)
+  if solver_backend not in ("auto", "pallas", "xla"):
+    raise ValueError(f"unknown solver_backend {solver_backend!r}")
   if clip_by_scaled_gradient_norm is not None and graft_type not in (
       GraftingType.RMSPROP, GraftingType.RMSPROP_NORMALIZED):
     raise ValueError(
         "clip_by_scaled_gradient_norm only applies to RMSProp grafting.")
+  generate_detailed_metrics = (generate_detailed_metrics
+                               and generate_training_metrics)
 
   graft_has_diag_stats = graft_type in (
       GraftingType.ADAGRAD, GraftingType.RMSPROP,
       GraftingType.RMSPROP_NORMALIZED, GraftingType.ADAGRAD_NORMALIZED)
   w2_ema = beta2 if beta2 == 1.0 else 1.0 - beta2
+  quantized = best_effort_memory_usage_reduction
 
   def preconditioner_from_params(param) -> Preconditioner:
     return Preconditioner(param, block_size, merge_small_dims_block_size,
@@ -287,7 +436,49 @@ def distributed_shampoo(
     return (param.dim() < skip_preconditioning_rank_lt or
             any(s > skip_preconditioning_dim_size_gt for s in param.shape))
 
+  # The quantized mode stores momenta as int8 and the legacy layout's
+  # statistics and roots as int16 plus an f32 diagonal.  The matrix hooks
+  # work on groups of equal-shape entries (see `Preconditioner`).
+  def _quantize_momentum(x):
+    if quantized:
+      return QuantizedValue.from_float_value(x, torch.int8)
+    return x
+
+  def _momentum_to_float(x):
+    return x.to_float() if isinstance(x, QuantizedValue) else x
+
+  def _matrices_to_float(entries) -> torch.Tensor:
+    if isinstance(entries[0], QuantizedValue):
+      return QuantizedValue.stack(entries).to_float()
+    return torch.stack(entries)
+
+  def _matrices_from_float(stack: torch.Tensor) -> list:
+    if quantized:
+      return QuantizedValue.from_float_value(
+          stack, torch.int16, extract_diagonal=True, batch_dims=1).unbind()
+    return list(stack.unbind(0))
+
+  # The stacked layout serves uniform-block params in the f32 mode only.
+  use_stacked = not quantized
+
   # --------------------------------------------------------------- init --
+  def _init_legacy(shapes, device):
+    """Identity-started statistics and roots of the legacy layout, encoded
+    by groups of one size."""
+    statistics = [None] * len(shapes)
+    preconditioners = [None] * len(shapes)
+    by_size: Dict[int, List[int]] = {}
+    for j, (d, _) in enumerate(shapes):
+      by_size.setdefault(d, []).append(j)
+    for d, js in by_size.items():
+      eye = torch.eye(d, dtype=torch.float32, device=device).expand(
+          len(js), d, d)
+      for out, value in ((statistics, matrix_epsilon * eye),
+                         (preconditioners, eye.clone())):
+        for j, entry in zip(js, _matrices_from_float(value)):
+          out[j] = entry
+    return statistics, preconditioners
+
   def init_fn(params: Mapping[str, torch.Tensor]) -> ShampooState:
     stats = {}
     for name, param in params.items():
@@ -295,27 +486,27 @@ def distributed_shampoo(
       num_stats = 0
       if not _skip_preconditioning(param):
         pre = preconditioner_from_params(param)
-        if not pre.stacked_layout():
-          raise _not_ported(
-              f"parameter {name!r} of shape {tuple(param.shape)} has ragged "
-              f"blocks at block_size={block_size}; the per-block layout",
-              "5a (rest of the default mode)")
-        for (nb, d, _) in pre.stacked_shapes():
-          eye = torch.eye(d, dtype=torch.float32, device=param.device)
-          statistics.append(matrix_epsilon * eye.expand(nb, d, d).clone())
-          preconditioners.append(eye.expand(nb, d, d).clone())
-          num_stats += nb
+        if use_stacked and pre.stacked_layout():
+          for (nb, d, _) in pre.stacked_shapes():
+            eye = torch.eye(d, dtype=torch.float32, device=param.device)
+            statistics.append(matrix_epsilon * eye.expand(nb, d, d).clone())
+            preconditioners.append(eye.expand(nb, d, d).clone())
+            num_stats += nb
+        else:
+          shapes = pre.shapes_for_preconditioners()
+          statistics, preconditioners = _init_legacy(shapes, param.device)
+          num_stats = len(shapes)
       metrics = None
       if generate_training_metrics:
-        metrics = RootMetrics(*torch.zeros(
-            (5, num_stats), dtype=torch.float32, device=param.device))
+        metrics = RootMetrics.zeros(num_stats, generate_detailed_metrics,
+                                    param.device)
       stats[name] = ParameterStats(
           diagonal_statistics=(torch.zeros_like(param)
                                if graft_has_diag_stats else None),
           statistics=statistics,
           preconditioners=preconditioners,
-          diagonal_momentum=torch.zeros_like(param),
-          momentum=torch.zeros_like(param),
+          diagonal_momentum=_quantize_momentum(torch.zeros_like(param)),
+          momentum=_quantize_momentum(torch.zeros_like(param)),
           training_metrics=metrics)
     return ShampooState(count=0, stats=stats)
 
@@ -325,39 +516,79 @@ def distributed_shampoo(
         or step % statistics_compute_steps != 0):
       return state
     pre = preconditioner_from_params(param)
-    return dataclasses.replace(state, statistics=pre.updated_statistics_stacked(
-        state.statistics, grad, w1=beta2, w2=w2_ema))
+    if _is_stacked(state.statistics):
+      new = pre.updated_statistics_stacked(state.statistics, grad, w1=beta2,
+                                           w2=w2_ema)
+    else:
+      new = pre.updated_statistics_from_grad(
+          state.statistics, grad, w1=beta2, w2=w2_ema,
+          to_float=_matrices_to_float, from_float=_matrices_from_float)
+    return dataclasses.replace(state, statistics=new)
 
   # ------------------------------------------------- preconditioner solve --
   def _solve_batched(stacked, exp, pads, prevs=None):
-    """Power iteration for the ridge, then the coupled-Newton solve.
+    """Root solve of one exponent's ``[N, m, m]`` batch.
 
-    The top eigenvalues come from one batched power iteration over the
-    whole group with a loose 1% relative exit: the estimate only scales
-    the relative ridge, power iteration converges from below, and the
-    retry ladder and the failure gate guard the rare member that needs a
-    larger ridge.
+    On the kernel's path the top eigenvalues come from one batched power
+    iteration over the whole group with a loose 1% relative exit: the
+    estimate only scales the relative ridge, power iteration converges
+    from below, and the retry ladder and the failure gate guard the rare
+    member that needs a larger ridge.  The kernel reports scalar metrics
+    only, so the detailed residuals are rebuilt after it.
     """
+    if eigh or solver_backend == "xla":
+      return pth_root.batched_inverse_pth_root(
+          stacked, exp, pads, prevs, ridge_epsilon=matrix_epsilon,
+          relative_matrix_epsilon=relative_matrix_epsilon, eigh=eigh,
+          generate_diagnostics=generate_detailed_metrics)
     max_evs = None
     if relative_matrix_epsilon:
       max_evs = pth_root.power_iteration(
           stacked, padding_starts=pads, error_tolerance=1e-2,
           relative_tolerance=True)[1]
-    return newton_root.batched_inverse_pth_root(
+    roots, metrics = newton_root.batched_inverse_pth_root(
         stacked, exp, pads, prevs=prevs, max_evs=max_evs,
         ridge_epsilon=matrix_epsilon,
         relative_matrix_epsilon=relative_matrix_epsilon)
+    if generate_detailed_metrics:
+      eff = (matrix_epsilon
+             * torch.clamp(metrics.max_eigenvalue, min=_EPSILON)
+             * torch.pow(10.0, torch.clamp(metrics.retries - 1.0, min=0.0)))
+      eye = torch.eye(stacked.shape[-1], dtype=torch.float32,
+                      device=stacked.device)
+      metrics.inverse_pth_root_diagnostics = (
+          diagnostics.InversePthRootDiagnostics.create(
+              roots, stacked + eff[:, None, None] * eye, exp, pads))
+    return roots, metrics
+
+  def _perform_solve(step) -> bool:
+    """The root-recompute gate, with the JAX package's decaying interval
+    (`preconditioning_compute_steps_schedule`) in f32 when scheduled."""
+    if not (decay_preconditioning_compute_steps
+            and end_preconditioning_compute_steps
+            and callable(learning_rate)):
+      return step % preconditioning_compute_steps == 0
+    f32 = np.float32
+    decay_factor = f32(learning_rate(step)) / f32(learning_rate(0))
+    t = (f32(preconditioning_compute_steps)
+         + (f32(1.0) - decay_factor) * f32(end_preconditioning_compute_steps))
+    steps_t = np.maximum((t // f32(10)) * f32(10), f32(1))
+    return bool(f32(step) % steps_t == 0)
 
   def _update_preconditioners(states: Dict[str, ParameterStats], params,
                               step) -> Dict[str, ParameterStats]:
     """Solve inverse roots for every statistic across all params at once.
 
     Statistics are gathered into one ``[N, m, m]`` batch per exponent,
-    each param contributing whole ``[nb, d, d]`` stacks padded with an
-    identity block to the largest ``d``.  Metrics come back in the global
-    statistic order: parameter by parameter, axis-major within each.
+    padded with an identity block to the largest ``d`` of all params.  A
+    stacked param contributes whole ``[nb, d, d]`` stacks; a legacy
+    param's per-block entries join the same batch, decoded a group of one
+    size at a time, and take their roots back through the failure gate
+    re-encoded (a failed entry keeps its decoded old root).  Metrics come
+    back in the global statistic order: parameter by parameter, axis-major
+    within a stacked param and block-major within a legacy one.
     """
-    if step % preconditioning_compute_steps != 0:
+    if not _perform_solve(step):
       return states
     chunks: List[_SolveChunk] = []
     spans = {}  # name -> (first global index, count, chunk ids)
@@ -368,11 +599,23 @@ def distributed_shampoo(
         pre = preconditioner_from_params(params[name])
         exp = (pre.exponent_for_preconditioner()
                if exponent_override == 0 else exponent_override)
-        for slot, s in enumerate(state.statistics):
-          ids.append(len(chunks))
-          chunks.append(_SolveChunk(name, slot, int(s.shape[0]),
-                                    int(s.shape[-1]), exp, stat_index))
-          stat_index += int(s.shape[0])
+        if _is_stacked(state.statistics):
+          for slot, s in enumerate(state.statistics):
+            k = int(s.shape[0])
+            ids.append(len(chunks))
+            chunks.append(_SolveChunk(name, (slot,), int(s.shape[-1]), exp,
+                                      tuple(range(stat_index,
+                                                  stat_index + k)), True))
+            stat_index += k
+        else:
+          by_size: Dict[int, List[int]] = {}
+          for j, s in enumerate(state.statistics):
+            by_size.setdefault(int(s.shape[0]), []).append(j)
+          for d, js in by_size.items():
+            ids.append(len(chunks))
+            chunks.append(_SolveChunk(name, tuple(js), d, exp,
+                                      tuple(first + j for j in js), False))
+          stat_index += len(state.statistics)
       spans[name] = (first, stat_index - first, ids)
     if stat_index == 0:
       return states
@@ -382,26 +625,38 @@ def distributed_shampoo(
     for ci, c in enumerate(chunks):
       groups.setdefault(c.exp, []).append(ci)
 
+    def chunk_mats(c: _SolveChunk, field: str) -> torch.Tensor:
+      mats = getattr(states[c.name], field)
+      if c.stacked:
+        return mats[c.slots[0]]
+      return _matrices_to_float([mats[j] for j in c.slots])
+
     fresh = [None] * len(chunks)
+    old_roots = {}  # legacy chunk id -> decoded previous roots
     group_metrics, order = [], []
     for exp, cids in sorted(groups.items()):
       cs = [chunks[ci] for ci in cids]
       grp = torch.cat([shape_utils.pad_square_stack(
-          states[c.name].statistics[c.slot], max_size) for c in cs])
+          chunk_mats(c, "statistics"), max_size) for c in cs])
       pads = torch.cat([torch.full((c.k,), c.d, dtype=torch.int32,
                                    device=grp.device) for c in cs])
       prevs = None
       if reuse_preconditioner:
         # Warm-start from the previous accepted roots; the solver certifies
         # each warm start and falls back to the cold ladder on its own.
-        prevs = torch.cat([shape_utils.pad_square_stack(
-            states[c.name].preconditioners[c.slot], max_size) for c in cs])
+        olds = []
+        for ci, c in zip(cids, cs):
+          olds.append(chunk_mats(c, "preconditioners"))
+          if not c.stacked:
+            old_roots[ci] = olds[-1]
+        prevs = torch.cat([shape_utils.pad_square_stack(o, max_size)
+                           for o in olds])
       roots, metrics = _solve_batched(grp, exp, pads, prevs)
       off = 0
       for ci, c in zip(cids, cs):
         fresh[ci] = roots[off:off + c.k]
         off += c.k
-        order.extend(range(c.start, c.start + c.k))
+        order.extend(c.indices)
       group_metrics.append(metrics)
     inv = torch.from_numpy(np.argsort(np.asarray(order))).to(grp.device)
     all_metrics = RootMetrics.cat(group_metrics).map(lambda x: x[inv])
@@ -417,10 +672,19 @@ def distributed_shampoo(
       new_pre = list(state.preconditioners)
       for ci in ids:
         c = chunks[ci]
-        gate = failed[c.start:c.start + c.k]
-        new_pre[c.slot] = torch.where(gate[:, None, None],
-                                      state.preconditioners[c.slot],
-                                      fresh[ci][:, :c.d, :c.d])
+        fr = fresh[ci][:, :c.d, :c.d]
+        if c.stacked:
+          gate = failed[c.indices[0]:c.indices[0] + c.k]
+          new_pre[c.slots[0]] = torch.where(
+              gate[:, None, None], state.preconditioners[c.slots[0]], fr)
+          continue
+        gate = failed[torch.tensor(c.indices, device=failed.device)]
+        old = old_roots.get(ci)
+        if old is None:
+          old = chunk_mats(c, "preconditioners")
+        kept = torch.where(gate[:, None, None], old, fr)
+        for j, entry in zip(c.slots, _matrices_from_float(kept)):
+          new_pre[j] = entry
       metrics = None
       if generate_training_metrics:
         metrics = all_metrics.map(lambda x, a=first, b=first + count: x[a:b])
@@ -464,8 +728,12 @@ def distributed_shampoo(
 
     if not _skip_preconditioning(param):
       pre = preconditioner_from_params(param)
-      precond_grad = pre.preconditioned_grad_stacked(
-          grad, state.preconditioners)
+      if _is_stacked(state.preconditioners):
+        precond_grad = pre.preconditioned_grad_stacked(
+            grad, state.preconditioners)
+      else:
+        precond_grad = pre.preconditioned_grad(
+            grad, state.preconditioners, to_float=_matrices_to_float)
     else:
       precond_grad = grafting_update
 
@@ -482,8 +750,9 @@ def distributed_shampoo(
       graft_wd = grafting_update + weight_decay * param
 
     w = (1.0 - beta1) if moving_average_for_momentum else 1.0
-    shampoo_mom = state.momentum * beta1 + w * shampoo_wd
-    graft_mom = state.diagonal_momentum * beta1 + w * graft_wd
+    shampoo_mom = _momentum_to_float(state.momentum) * beta1 + w * shampoo_wd
+    graft_mom = (_momentum_to_float(state.diagonal_momentum) * beta1
+                 + w * graft_wd)
 
     run_shampoo = step >= start_preconditioning_step
     momentum_update = shampoo_mom if run_shampoo else graft_mom
@@ -503,7 +772,8 @@ def distributed_shampoo(
 
     new_state = dataclasses.replace(
         state, diagonal_statistics=new_diag_stats,
-        diagonal_momentum=graft_mom, momentum=shampoo_mom)
+        diagonal_momentum=_quantize_momentum(graft_mom),
+        momentum=_quantize_momentum(shampoo_mom))
     return transformed, new_state
 
   # ------------------------------------------------------------- update --
@@ -544,13 +814,79 @@ def distributed_shampoo(
   return GradientTransformation(init_fn, update_fn)
 
 
+def state_to_tree(state: ShampooState) -> dict:
+  """The state as nested dicts and lists of tensors and plain values, the
+  form `torch.save` keeps and `torch.load(weights_only=True)` reads."""
+  def leaf(x):
+    if isinstance(x, QuantizedValue):
+      return {"quantized": x.quantized, "diagonal": x.diagonal,
+              "bucket_size": x.bucket_size,
+              "quantized_dtype": str(x.quantized_dtype).split(".")[-1],
+              "extract_diagonal": x.extract_diagonal, "shape": list(x.shape)}
+    return x
+
+  def metrics(m):
+    if m is None:
+      return None
+    out = {f.name: getattr(m, f.name) for f in dataclasses.fields(m)}
+    diag = m.inverse_pth_root_diagnostics
+    out["inverse_pth_root_diagnostics"] = (
+        None if diag is None else dataclasses.asdict(diag))
+    return out
+
+  return {"count": state.count, "stats": {
+      name: {"diagonal_statistics": ps.diagonal_statistics,
+             "statistics": [leaf(s) for s in ps.statistics],
+             "preconditioners": [leaf(p) for p in ps.preconditioners],
+             "diagonal_momentum": leaf(ps.diagonal_momentum),
+             "momentum": leaf(ps.momentum),
+             "training_metrics": metrics(ps.training_metrics)}
+      for name, ps in state.stats.items()}}
+
+
+def state_from_tree(tree: dict, device=None) -> ShampooState:
+  """Inverse of `state_to_tree`; tensors move to ``device`` when given."""
+  move = lambda t: t if t is None or device is None else t.to(device)
+
+  def leaf(x):
+    if isinstance(x, dict):
+      return QuantizedValue(
+          move(x["quantized"]), move(x["diagonal"]), move(x["bucket_size"]),
+          getattr(torch, x["quantized_dtype"]), x["extract_diagonal"],
+          tuple(x["shape"]))
+    return move(x)
+
+  def metrics(m):
+    if m is None:
+      return None
+    diag = m["inverse_pth_root_diagnostics"]
+    return RootMetrics(
+        **{k: move(v) for k, v in m.items()
+           if k != "inverse_pth_root_diagnostics"},
+        inverse_pth_root_diagnostics=None if diag is None else (
+            diagnostics.InversePthRootDiagnostics(
+                **{k: move(v) for k, v in diag.items()})))
+
+  return ShampooState(count=int(tree["count"]), stats={
+      name: ParameterStats(
+          diagonal_statistics=move(ps["diagonal_statistics"]),
+          statistics=[leaf(s) for s in ps["statistics"]],
+          preconditioners=[leaf(p) for p in ps["preconditioners"]],
+          diagonal_momentum=leaf(ps["diagonal_momentum"]),
+          momentum=leaf(ps["momentum"]),
+          training_metrics=metrics(ps["training_metrics"]))
+      for name, ps in tree["stats"].items()})
+
+
 class DistributedShampoo(torch.optim.Optimizer):
   """`torch.optim.Optimizer` over the functional `distributed_shampoo`.
 
   One parameter group.  ``lr`` is read from the group at every step, so
   `torch.optim.lr_scheduler` schedulers work; the other keyword arguments
   are those of `distributed_shampoo`.  Every parameter needs a gradient at
-  every step.  The Shampoo state lives in ``self.shampoo_state``.
+  every step.  The Shampoo state lives in ``self.shampoo_state``;
+  `state_dict` carries it under ``"shampoo_state"`` (see `state_to_tree`)
+  and `load_state_dict` restores it onto the parameters' device.
   """
 
   def __init__(self, params, lr: float, **kwargs):
@@ -563,6 +899,18 @@ class DistributedShampoo(torch.optim.Optimizer):
         learning_rate=lambda step: self.param_groups[0]["lr"], **kwargs)
     self.shampoo_state = self._transform.init(
         {n: p.detach() for n, p in self._named.items()})
+
+  def state_dict(self):
+    out = super().state_dict()
+    out["shampoo_state"] = state_to_tree(self.shampoo_state)
+    return out
+
+  def load_state_dict(self, state_dict):
+    state_dict = dict(state_dict)
+    tree = state_dict.pop("shampoo_state")
+    super().load_state_dict(state_dict)
+    device = next(iter(self._named.values())).device
+    self.shampoo_state = state_from_tree(tree, device)
 
   @torch.no_grad()
   def step(self, closure=None):

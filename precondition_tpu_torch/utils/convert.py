@@ -4,10 +4,15 @@ Both directions go through numpy, so nothing here imports JAX: a JAX tree
 is handed over as the same tree with numpy leaves
 (``jax.tree.map(np.asarray, tree)``).  Nested dicts flatten to the port's
 flat ``{"a/b": tensor}`` dicts in JAX's flattening order (sorted keys).
+Both state layouts travel, as do `QuantizedValue` leaves and the detailed
+metrics' residual report.  JAX's detailed metrics also carry LOBPCG and
+conditioned-root reports, which are all zeros without LOBPCG: the port
+drops them and writes zeros back.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
@@ -15,9 +20,13 @@ import torch
 
 from precondition_tpu_torch.ops.pth_root import RootMetrics
 from precondition_tpu_torch.optim.shampoo import ParameterStats, ShampooState
+from precondition_tpu_torch.utils.diagnostics import InversePthRootDiagnostics
+from precondition_tpu_torch.utils.quantization import QuantizedValue
 
 _METRIC_FIELDS = ("error", "iterations", "error_ratio", "max_eigenvalue",
                   "retries")
+_DIAG_FIELDS = ("max_diag_error", "avg_diag_error", "max_off_diag_error",
+                "avg_off_diag_error", "p")
 
 
 def _flatten(tree, prefix="") -> List[Tuple[str, Any]]:
@@ -45,6 +54,59 @@ def _numpy(x: torch.Tensor) -> np.ndarray:
   return x.detach().cpu().numpy()
 
 
+def _is_quantized(x) -> bool:
+  return hasattr(x, "quantized_dtype")
+
+
+def _leaf_from_numpy(x, device):
+  """A tensor, or a JAX `QuantizedValue` with numpy leaves as the port's."""
+  if not _is_quantized(x):
+    return _tensor(x, device)
+  dtype = getattr(torch, np.dtype(x.quantized_dtype).name)
+  opt = lambda t: None if isinstance(t, (list, tuple)) else _tensor(t, device)
+  return QuantizedValue(_tensor(x.quantized, device), opt(x.diagonal),
+                        opt(x.bucket_size), dtype, bool(x.extract_diagonal),
+                        tuple(x.shape))
+
+
+def _leaf_to_numpy(x, like):
+  if isinstance(x, QuantizedValue):
+    opt = lambda t, default: default if t is None else _numpy(t)
+    return like.replace(quantized=_numpy(x.quantized),
+                        diagonal=opt(x.diagonal, like.diagonal),
+                        bucket_size=opt(x.bucket_size, like.bucket_size))
+  return _numpy(x)
+
+
+def _metrics_from_numpy(m, device):
+  if not hasattr(m, "error"):
+    return None
+  diag = getattr(m, "inverse_pth_root_diagnostics", None)
+  return RootMetrics(
+      **{f: _tensor(getattr(m, f), device) for f in _METRIC_FIELDS},
+      inverse_pth_root_diagnostics=(
+          InversePthRootDiagnostics(**{
+              f: _tensor(getattr(diag, f), device) for f in _DIAG_FIELDS})
+          if hasattr(diag, "p") else None))
+
+
+def _metrics_to_numpy(m: RootMetrics, like):
+  out = like.replace(**{f: _numpy(getattr(m, f)) for f in _METRIC_FIELDS})
+  diag = m.inverse_pth_root_diagnostics
+  if diag is None:
+    return out
+  zero = lambda t: np.zeros_like(np.asarray(t))
+  fill = lambda node: node.replace(**{
+      f.name: zero(getattr(node, f.name))
+      for f in dataclasses.fields(node)})
+  return out.replace(
+      lobpcg=fill(like.lobpcg),
+      conditioned_inverse_pth_root_diagnostics=fill(
+          like.conditioned_inverse_pth_root_diagnostics),
+      inverse_pth_root_diagnostics=like.inverse_pth_root_diagnostics.replace(
+          **{f: _numpy(getattr(diag, f)) for f in _DIAG_FIELDS}))
+
+
 def params_from_numpy(tree, device=None) -> Dict[str, torch.Tensor]:
   """A (nested-dict) tree of numpy arrays as the port's flat tensor dict."""
   return {path: _tensor(leaf, device) for path, leaf in _flatten(tree)}
@@ -53,25 +115,21 @@ def params_from_numpy(tree, device=None) -> Dict[str, torch.Tensor]:
 def state_from_numpy(state, device=None) -> ShampooState:
   """A JAX `ShampooState` with numpy leaves as the port's state.
 
-  The JAX state must use the stacked layout (the default mode's layout
-  for params with uniform blocks).
+  Stacked ``[nb, d, d]`` and legacy per-block entries keep their layout;
+  `QuantizedValue` leaves become the port's.
   """
   stats = {}
   for path, ps in _flatten(state.stats):
-    metrics = None
-    if hasattr(ps.training_metrics, "error"):
-      metrics = RootMetrics(**{
-          f: _tensor(getattr(ps.training_metrics, f), device)
-          for f in _METRIC_FIELDS})
     diag = ps.diagonal_statistics
     stats[path] = ParameterStats(
         diagonal_statistics=(None if isinstance(diag, (list, tuple))
                              else _tensor(diag, device)),
-        statistics=[_tensor(s, device) for s in ps.statistics],
-        preconditioners=[_tensor(p, device) for p in ps.preconditioners],
-        diagonal_momentum=_tensor(ps.diagonal_momentum, device),
-        momentum=_tensor(ps.momentum, device),
-        training_metrics=metrics)
+        statistics=[_leaf_from_numpy(s, device) for s in ps.statistics],
+        preconditioners=[_leaf_from_numpy(p, device)
+                         for p in ps.preconditioners],
+        diagonal_momentum=_leaf_from_numpy(ps.diagonal_momentum, device),
+        momentum=_leaf_from_numpy(ps.momentum, device),
+        training_metrics=_metrics_from_numpy(ps.training_metrics, device))
   return ShampooState(count=int(state.count), stats=stats)
 
 
@@ -86,16 +144,18 @@ def state_to_numpy(state: ShampooState, like):
     ps = state.stats[path]
     metrics = like_ps.training_metrics
     if ps.training_metrics is not None:
-      metrics = metrics.replace(**{
-          f: _numpy(getattr(ps.training_metrics, f)) for f in _METRIC_FIELDS})
+      metrics = _metrics_to_numpy(ps.training_metrics, metrics)
+    leaves = lambda xs, likes: [_leaf_to_numpy(x, lk)
+                                for x, lk in zip(xs, likes, strict=True)]
     return like_ps._replace(
         diagonal_statistics=(like_ps.diagonal_statistics
                              if ps.diagonal_statistics is None
                              else _numpy(ps.diagonal_statistics)),
-        statistics=[_numpy(s) for s in ps.statistics],
-        preconditioners=[_numpy(p) for p in ps.preconditioners],
-        diagonal_momentum=_numpy(ps.diagonal_momentum),
-        momentum=_numpy(ps.momentum),
+        statistics=leaves(ps.statistics, like_ps.statistics),
+        preconditioners=leaves(ps.preconditioners, like_ps.preconditioners),
+        diagonal_momentum=_leaf_to_numpy(ps.diagonal_momentum,
+                                         like_ps.diagonal_momentum),
+        momentum=_leaf_to_numpy(ps.momentum, like_ps.momentum),
         training_metrics=metrics)
 
   return like._replace(

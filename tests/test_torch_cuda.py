@@ -10,15 +10,22 @@ tolerance, `tests/test_pallas_kernels.py:59`; both sides are f32 with sums
 in other orders), ladder rounds equal, iterations within 1.  The matmul
 chain is held to its twin at the same rtol 1e-3 / atol 1e-5.  The Newton
 tests above it also guard the resident product code that both kernels
-share (`csrc/resident_gemm.cuh`).
+share (`csrc/resident_gemm.cuh`).  The optimizer's options on the card
+(ragged blocks, quantized state, eigh, the batched torch solver, detailed
+metrics) are held to the same optimizer on the CPU: updates rtol 1e-3 /
+atol 1e-4 * max|x|, 2 * max|x| / 127 in the quantized mode (an int8 code
+may round the other way on one side).  Quantization on the card equals the
+CPU's bit for bit.
 """
 
 import pytest
 import torch
 
+from precondition_tpu_torch.ops import pth_root
 from precondition_tpu_torch.ops.kernels import matmul_chain
 from precondition_tpu_torch.ops.kernels import newton_root
 from precondition_tpu_torch.optim import shampoo
+from precondition_tpu_torch.utils.quantization import QuantizedValue
 
 pytestmark = pytest.mark.cuda
 
@@ -179,3 +186,73 @@ def test_matmul_chain_wrapper_rejects_what_the_kernel_does_not_take(dev):
     matmul_chain.matmul_chain_cuda(_psd(2, 16, dev).transpose(1, 2), 4, 1)
   with pytest.raises(TypeError, match="float32"):
     matmul_chain.matmul_chain_cuda(_psd(2, 16, dev).double(), 4, 1)
+
+
+@pytest.mark.parametrize("dtype,extract_diagonal", [
+    (torch.int8, False), (torch.int16, True)])
+def test_quantization_on_the_card_equals_the_cpu(dev, dtype, extract_diagonal):
+  stats = _psd(64, 128, dev)
+  stats[3] = torch.eye(128, device=dev)  # scale 0 divides by 1
+  got = QuantizedValue.from_float_value(stats, dtype, extract_diagonal,
+                                        batch_dims=1)
+  want = QuantizedValue.from_float_value(stats.cpu(), dtype,
+                                         extract_diagonal, batch_dims=1)
+  for a, b in zip(got.tensors(), want.tensors(), strict=True):
+    assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("eigh", [False, True], ids=["newton", "eigh"])
+def test_batched_solver_on_the_card_matches_the_cpu(dev, eigh):
+  pads = torch.tensor([128, 96, 0, 17] * 4, dtype=torch.int32, device=dev)
+  idx = torch.arange(128, device=dev)
+  mask = (idx[None, :] < pads[:, None]).float()
+  stats = _psd(16, 128, dev) * mask[:, :, None] * mask[:, None, :]
+  got, met = pth_root.batched_inverse_pth_root(stats, 4, pads, eigh=eigh)
+  want, met_c = pth_root.batched_inverse_pth_root(stats.cpu(), 4, pads.cpu(),
+                                                  eigh=eigh)
+  torch.testing.assert_close(got.cpu(), want, rtol=1e-3,
+                             atol=1e-5 * float(want.abs().max()))
+  assert torch.equal(met.retries.cpu(), met_c.retries)
+
+
+_RAGGED = {"w": (256, 384), "r": (200, 130), "norm": (256,)}
+
+
+@pytest.mark.parametrize("options", [
+    dict(), dict(best_effort_memory_usage_reduction=True),
+    dict(eigh=True), dict(solver_backend="xla"),
+    dict(generate_detailed_metrics=True),
+    dict(best_effort_memory_usage_reduction=True, reuse_preconditioner=True,
+         generate_detailed_metrics=True),
+], ids=["ragged", "quantized", "eigh", "xla", "detailed", "quantized-warm"])
+def test_shampoo_options_on_the_card_match_the_cpu_path(dev, options):
+  gen = torch.Generator().manual_seed(0)
+  params = {n: 0.1 * torch.randn(s, generator=gen) for n, s in _RAGGED.items()}
+  grads = [{n: 0.1 * torch.randn(s, generator=gen)
+            for n, s in _RAGGED.items()} for _ in range(3)]
+  results = {}
+  for device in ("cpu", dev):
+    opt = shampoo.distributed_shampoo(
+        learning_rate=0.1, block_size=128, start_preconditioning_step=0,
+        graft_type=shampoo.GraftingType.RMSPROP, **options)
+    p = {n: x.to(device) for n, x in params.items()}
+    state = opt.init(p)
+    before = newton_root.LAUNCHES
+    for g in grads:
+      upd, state = opt.update({n: x.to(device) for n, x in g.items()}, state,
+                              p)
+      p = {n: p[n] + upd[n] for n in p}
+    results[str(device)] = (p, newton_root.LAUNCHES - before, state)
+  kernel = not options.get("eigh") and options.get("solver_backend") != "xla"
+  assert results["cpu"][1] == 0
+  assert results[str(dev)][1] == (6 if kernel else 0)
+  quantized = options.get("best_effort_memory_usage_reduction", False)
+  for n in _RAGGED:
+    ref = results["cpu"][0][n]
+    scale = float(ref.abs().max())
+    torch.testing.assert_close(
+        results[str(dev)][0][n].cpu(), ref, rtol=1e-3,
+        atol=2 * scale / 127 if quantized else 1e-4 * scale)
+  errors = torch.cat([ps.training_metrics.error
+                      for ps in results[str(dev)][2].stats.values()])
+  assert float(errors.max()) < 0.1
