@@ -18,19 +18,32 @@ Phases, each of which raises on failure:
       and iterations are compared, the true residual is checked in float64
       on the host, and kernel and twin are timed beside the kernel's bound;
       then the matmul-chain kernel against its twin at [6144,128,128] p=4,
-      8 steps, timed beside its bound;
+      8 steps, timed beside its bound; then the per-matrix solvers ("xla",
+      eigh, LOBPCG-deflated with k = 4) timed at [6144,128,128] p=4;
   (c) five `distributed_shampoo` updates on the 58.7M-parameter
       transformer-shaped tree of the JAX package's bench.py (4 layers,
       d=1024, ff=4096, vocab 8192, block 128, RMSProp grafting), counting
       kernel launches, plus the same optimizer on the GPU against its CPU
-      path on small trees: the default one, and ragged ones under the
-      quantized, eigh, "xla" and detailed-metrics option sets;
+      path on small trees: the default one, ragged ones under the
+      quantized, eigh, "xla" and detailed-metrics option sets, and blocks
+      of 128 under compression +-32, FD (plain, with reset, with
+      average_grad, with FD metrics), LOBPCG k=2 and a mixed-size FD tree;
+      and a [1100, 8] param at block 2048, above the kernel's limit;
   (c2) the same five updates with best_effort_memory_usage_reduction
       (int8 momenta, int16 per-block statistics and roots): two launches a
       step, every root accepted, each step's update within 0.1 relative
       Frobenius of (c)'s, the state's bytes within 0.1% of the JAX
       package's shape count; step times, peak memory and the host cost of
       decoding and encoding the per-block state;
+  (c3) Sketchy: three updates of the same fixture with frequent_directions
+      and compression_rank=32 (every block of 128 compresses): no Newton
+      launch, every FD error 0, state bytes within 0.1% of the JAX count,
+      64 sampled members of the last step's solve re-solved on the host
+      and compared as operators; step times, peak memory, one profiled
+      step; then the compressed solves' library calls timed (QR, the SVD's
+      drivers, eigh);
+  (c4) the same with low-rank roots (compression_rank=32 alone), three
+      updates, every root accepted by the failure gate;
   (d) `DistributedShampoo` training a width-1024 least-squares model;
   (e) the tile-breakdown probe (precondition_tpu_torch.probes.tile_breakdown)
       at the JAX script's [712,128,128] p=4 and at the main path's
@@ -53,6 +66,7 @@ import time
 import numpy as np
 import torch
 
+from precondition_tpu_torch.ops import lowrank
 from precondition_tpu_torch.ops import pth_root
 from precondition_tpu_torch.ops.kernels import _build
 from precondition_tpu_torch.ops.kernels import matmul_chain
@@ -359,7 +373,8 @@ def phase_kernel(device, n4=6144, n2=32, m=128, n_ill=512):
     log(f"  time {name} cold ({path} path, {iters:.2f} mean iterations): "
         f"kernel {t_k} ms, twin {t_p} ms, bound {bound_ms:.3f} ms "
         f"({bound_by}), {100 * bound_ms / kernel_ms:.1f}% of the bound")
-  return max(diffs), timings, chain_check(stats4, 4)
+  solvers = solver_timings(stats4, timings[f"[{n4},{m},{m}] p=4"]["ms"])
+  return max(diffs), timings, chain_check(stats4, 4), solvers
 
 
 def chain_check(stats, p, iters=CHAIN_ITERS):
@@ -415,25 +430,54 @@ SMALL_OPTIONS = (
     ("xla", dict(solver_backend="xla")),
     ("detailed metrics", dict(generate_detailed_metrics=True)),
 )
+# The compressed modes' small trees hold blocks of 128 whose gradients
+# have full rank, as the bench tree's matrices do: a rank-k root of a
+# rank-deficient statistic keeps tied eigenvalues whose basis, and an FD
+# tail whose rounding-level value, each LAPACK build picks its own way.
+# The mixed-size tree's [20, 30] block takes full roots (20 and 30 are at
+# most k + 2 = 34) beside FD blocks of 128, so its members launch the
+# kernel, padded to 128.  (label, tree, options, kernel launches).
+COMPRESSION_RANK = 32
+_FD = dict(compression_rank=COMPRESSION_RANK, frequent_directions=True)
+_BLOCKS_128 = {"w": (256, 384), "v": (128, 128)}
+COMPRESSED_RUNS = (
+    ("compression +32", _BLOCKS_128, dict(compression_rank=32), 0),
+    ("compression -32", _BLOCKS_128, dict(compression_rank=-32), 0),
+    ("FD", _BLOCKS_128, _FD, 0),
+    ("FD with reset every 2", _BLOCKS_128,
+     dict(_FD, reset_preconditioner=True, beta2=0.5), 0),
+    ("FD with average_grad", _BLOCKS_128,
+     dict(_FD, average_grad=True, statistics_compute_steps=2), 0),
+    ("FD metrics", _BLOCKS_128, dict(_FD, generate_fd_metrics=True), 0),
+    ("LOBPCG k=2", _BLOCKS_128, dict(lobpcg_topk_precondition=2), 0),
+    ("mixed-size FD", {"w": (256, 384), "s": (20, 30)},
+     dict(_FD, best_effort_shape_interpretation=False), 3),
+)
 
 
 def small_tree_check(device):
   """The same optimizer on the GPU (kernel) and on the CPU (twin) from
-  the same small inputs: 3 updates must agree, on the default tree and on
-  the ragged trees under every option set (updates rtol 1e-3 / atol 1e-4 *
-  max|x|; 2 * max|x| / 127 quantized, where an int8 code may round the
-  other way on one side)."""
-  runs = [(SMALL_TREES[0][0], SMALL_TREES[0][1], {})]
-  runs += [(f"{tree}, {label}", shapes, {**base, **options})
+  the same small inputs: 3 updates must agree, on the default tree, on
+  the ragged trees under every option set and on the compressed modes'
+  trees (updates rtol 1e-3 / atol 1e-4 * max|x|; 2 * max|x| / 127
+  quantized, where an int8 code may round the other way on one side).
+  Every root must pass the failure gate, except under LOBPCG, whose k
+  iterations leave pairs unconverged and roots the gate rejects: there
+  both devices must reject the same members."""
+  runs = [(SMALL_TREES[0][0], SMALL_TREES[0][1], {}, 6)]
+  runs += [(f"{tree}, {label}", shapes, {**base, **options},
+            0 if options.get("eigh") or options.get("solver_backend") == "xla"
+            else 6)
            for tree, shapes, base in SMALL_TREES[1:]
            for label, options in SMALL_OPTIONS]
-  for label, shapes, options in runs:
+  runs += list(COMPRESSED_RUNS)
+  for label, shapes, options, want_launches in runs:
     gen = torch.Generator().manual_seed(1)
     params = {n: 0.1 * torch.randn(s, generator=gen)
               for n, s in shapes.items()}
     grads = [{n: 0.1 * torch.randn(s, generator=gen)
               for n, s in shapes.items()} for _ in range(3)]
-    out = {}
+    out, rejected = {}, {}
     launches = newton_root.LAUNCHES
     for dev in ("cpu", device):
       opt = shampoo.distributed_shampoo(**{**HYPERS, **options})
@@ -446,12 +490,17 @@ def small_tree_check(device):
       out[dev] = p
       errors = torch.cat([ps.training_metrics.error
                           for ps in state.stats.values()])
-      check(errors.max().item() < 0.1,
+      rejected[dev] = (errors >= 0.1).cpu()
+      check(options.get("lobpcg_topk_precondition")
+            or not bool(rejected[dev].any()),
             f"small tree ({label}) on {dev}: the failure gate rejected roots")
+    check(torch.equal(rejected["cpu"], rejected[device]),
+          f"small tree ({label}): the devices' failure gates disagree")
     launches = newton_root.LAUNCHES - launches
-    kernel = not options.get("eigh") and options.get("solver_backend") != "xla"
-    check(launches == (6 if kernel else 0),
-          f"small tree ({label}): {launches} kernel launches")
+    kernel = want_launches > 0
+    check(launches == want_launches,
+          f"small tree ({label}): {launches} kernel launches, expected "
+          f"{want_launches}")
     quantized = options.get("best_effort_memory_usage_reduction", False)
     worst = 0.0
     for n in shapes:
@@ -463,8 +512,10 @@ def small_tree_check(device):
                            else 1e-4 * scale),
             f"small tree ({label}): GPU and CPU paths disagree on {n}")
     log(f"  small tree ({label}), 3 updates: GPU "
-        f"({'kernel' if kernel else 'torch solver'}) against CPU max |diff| "
-        f"{worst:.3e}, {launches} kernel launches")
+        f"({'kernel' if kernel else 'torch solvers'}) against CPU max |diff| "
+        f"{worst:.3e}, {launches} kernel launches, "
+        f"{int(rejected[device].sum())} of {len(rejected[device])} roots "
+        "rejected by the gate")
 
 
 def state_bytes(state):
@@ -495,13 +546,16 @@ def bench_fixture(device, **tree):
   return params, grads
 
 
-def run_steps(label, opt, params, grads, steps, reference=None):
+def run_steps(label, opt, params, grads, steps, reference=None,
+              launches_per_step=2):
   """Initializes the state, resets the peak-memory counter and runs
-  ``steps`` updates with the roots every step; checks the launches, the
-  updates and the failure gate, and with ``reference`` (a list of each
-  step's updates on the host) each step's relative Frobenius difference
-  from it.  Returns (updates on the host, step seconds, state, max rel
-  diff, max root error, bytes held before the steps, peak bytes)."""
+  ``steps`` updates with the roots every step; checks the Newton kernel's
+  launches (``launches_per_step`` a step), the updates and the failure
+  gate, and with ``reference`` (a list of each step's updates on the
+  host) each step's relative Frobenius difference from it.  Returns a
+  dict: the updates on the host, step seconds, the state before the last
+  step and after it, the max rel diff, the max root error, the bytes held
+  before the steps and the peak bytes."""
   state = opt.init(params)
   torch.cuda.synchronize()
   base = torch.cuda.memory_allocated()
@@ -510,15 +564,16 @@ def run_steps(label, opt, params, grads, steps, reference=None):
   newton_root.LAUNCHES = matmul_chain.LAUNCHES = 0
   for step in range(steps):
     g = grads()
+    before = state
     torch.cuda.synchronize()
     start = time.perf_counter()
     updates, state = opt.update(g, state, params)
     torch.cuda.synchronize()
     times.append(time.perf_counter() - start)
     launches = newton_root.LAUNCHES
-    check(launches == 2 * (step + 1),
-          f"{label} step {step}: {launches} kernel launches, expected "
-          f"{2 * (step + 1)}")
+    want = launches_per_step * (step + 1)
+    check(launches == want,
+          f"{label} step {step}: {launches} kernel launches, expected {want}")
     for n, u in updates.items():
       check(u.shape == params[n].shape and bool(torch.isfinite(u).all()),
             f"{label} step {step}: update of {n} is not finite or has a "
@@ -543,18 +598,21 @@ def run_steps(label, opt, params, grads, steps, reference=None):
       kept.append(host)
   check(matmul_chain.LAUNCHES == 0,
         f"{label}: the matmul chain ran on the optimizer's path")
-  return (kept, times, state, rel_worst, errors.max().item(), base,
-          torch.cuda.max_memory_allocated())
+  return dict(updates=kept, times=times, before=before, state=state,
+              rel=rel_worst, max_error=errors.max().item(), base=base,
+              peak=torch.cuda.max_memory_allocated())
 
 
 def phase_main_path(device, steps=5, **tree):
   log("(c) main path: distributed_shampoo on the bench fixture")
   small_tree_check(device)
+  f1_check(device)
   params, grads = bench_fixture(device, **tree)
   n_params = sum(p.numel() for p in params.values())
   opt = shampoo.distributed_shampoo(**HYPERS)
-  updates, times, state, _, max_error, _, peak = run_steps(
-      "(c)", opt, params, grads, steps)
+  run = run_steps("(c)", opt, params, grads, steps)
+  updates, times, state = run["updates"], run["times"], run["state"]
+  max_error, peak = run["max_error"], run["peak"]
   launches = newton_root.LAUNCHES
   census = {}
   for name, ps in state.stats.items():
@@ -586,16 +644,18 @@ JAX_STATE_BYTES = {"f32": 1514.2e6, "quantized": 770.0e6}
 SCOPES = ("ShampooStatistics", "ShampooRootSolve", "ShampooPrecondition")
 
 
-def profile_step(opt, state, params, grads):
+def profile_step(opt, state, params, grads, trace_device=True):
   """One more update under `torch.profiler`: the host ms of each of the
-  optimizer's three scopes, the kernels' device ms in all, and the
-  step's wall ms (inflated by the profiler)."""
+  optimizer's three scopes, the kernels' device ms in all (None without
+  ``trace_device``), and the step's wall ms (inflated by the profiler)."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
   g = grads()
   torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
+  activities = [ProfilerActivity.CPU]
+  if trace_device:
+    activities.append(ProfilerActivity.CUDA)
+  with profile(activities=activities) as prof:
     start = time.perf_counter()
     opt.update(g, state, params)
     torch.cuda.synchronize()
@@ -608,7 +668,7 @@ def profile_step(opt, state, params, grads):
   # Device events other than the scopes' own spans: kernels, copies, sets.
   out["kernels_ms"] = sum(e.self_device_time_total for e in events
                           if e.device_type == DeviceType.CUDA
-                          and e.key not in SCOPES) / 1e3
+                          and e.key not in SCOPES) / 1e3 if trace_device else None
   return out
 
 
@@ -657,8 +717,9 @@ def phase_memory_reduced(device, reference, f32_bytes, steps=5, **tree):
   params, grads = bench_fixture(device, **tree)
   opt = shampoo.distributed_shampoo(
       **HYPERS, best_effort_memory_usage_reduction=True)
-  _, times, state, rel, max_error, base, peak = run_steps(
-      "(c2)", opt, params, grads, steps, reference=reference)
+  run = run_steps("(c2)", opt, params, grads, steps, reference=reference)
+  times, state, rel = run["times"], run["state"], run["rel"]
+  max_error, base, peak = run["max_error"], run["base"], run["peak"]
   launches = newton_root.LAUNCHES
   median_ms = 1e3 * float(np.median(times[1:]))
   nbytes = state_bytes(state)
@@ -690,6 +751,183 @@ def phase_memory_reduced(device, reference, f32_bytes, steps=5, **tree):
               metric_bytes=metric_bytes, max_rel_update_diff=rel,
               host_decode_ms=codec["decode"], host_encode_ms=codec["encode"],
               gc_objects=codec["gc_objects"], gc_ms=codec["gc_ms"])
+
+
+# Optimizer-state bytes of the JAX package on the bench tree with
+# compression_rank=32, with or without frequent directions, without
+# training metrics: `jax.eval_shape` of its `init` (the port's count is
+# held to it on the CPU by tests/test_torch_state_bytes.py).
+JAX_COMPRESSED_STATE_BYTES = 1_216_954_372
+# Members of the last step's compressed solve re-solved on the host.
+SAMPLED = 64
+# Members of the library timings that loop over the batch on the card.
+LOOPED_MEMBERS = 256
+
+
+def packed_operators(bufs, rank):
+  """``U diag(inv) U^T + const (I - U U^T)`` of packed roots ``[N, d, k+2]``:
+  what each applies, whatever basis its tied eigenvalues took."""
+  u, inv, const, _ = lowrank.low_rank_unpack(bufs, rank)
+  eye = torch.eye(bufs.shape[1], dtype=bufs.dtype, device=bufs.device)
+  return (torch.einsum("nik,nk,njk->nij", u, inv, u)
+          + const[:, None, None] * (eye - u @ u.transpose(1, 2)))
+
+
+def host_resolve(label, run, params, solve):
+  """Re-solves SAMPLED members of the last step's batched compressed solve
+  on the host from the same statistics (and, for FD, the same previous
+  roots) with ``solve(stats, prevs)``, and holds the card's packed roots to
+  them as operators beside their scalar columns (relative Frobenius
+  difference at most 1e-3).  The members are spread evenly over the 2-D
+  params' blocks, whose gradients have full rank; the norm vectors' rank-1
+  statistics tie eigenvalues and put rounding-level values in FD tails."""
+  picks = [(n, j) for n in run["state"].stats if params[n].dim() == 2
+           for j in range(len(run["state"].stats[n].statistics))]
+  picks = [picks[i] for i in np.linspace(0, len(picks) - 1,
+                                         SAMPLED).astype(int)]
+  new, old = run["state"].stats, run["before"].stats
+  take = lambda stats, field: torch.stack(
+      [getattr(stats[n], field)[j] for n, j in picks]).cpu()
+  got = take(new, "preconditioners")
+  want, _ = solve(take(new, "statistics"), take(old, "preconditioners"))
+  rel = lambda a, b: (torch.linalg.vector_norm(a - b, dim=(1, 2))
+                      / torch.linalg.vector_norm(b, dim=(1, 2)))
+  op_rel = rel(packed_operators(got, COMPRESSION_RANK),
+               packed_operators(want, COMPRESSION_RANK)).max().item()
+  k = COMPRESSION_RANK
+  scalar_rel = rel(got[:, :, k:], want[:, :, k:]).max().item()
+  log(f"  {label}: {SAMPLED} sampled members re-solved on the host: max "
+      f"relative Frobenius difference {op_rel:.3e} (operators), "
+      f"{scalar_rel:.3e} (packed scalars)")
+  check(op_rel <= 1e-3 and scalar_rel <= 1e-3,
+        f"{label}: the card's packed roots differ from the host's")
+  return dict(operator_rel=op_rel, scalar_rel=scalar_rel)
+
+
+def phase_compressed(label, device, steps, frequent_directions, **tree):
+  """(c3) and (c4): the bench fixture with compression_rank=32, frequent
+  directions or low-rank roots, on the same parameters and gradients as
+  (c).  Every block of 128 compresses (34 < 128), so no member takes the
+  Newton kernel."""
+  params, grads = bench_fixture(device, **tree)
+  opt = shampoo.distributed_shampoo(
+      **HYPERS, compression_rank=COMPRESSION_RANK,
+      frequent_directions=frequent_directions)
+  run = run_steps(label, opt, params, grads, steps, launches_per_step=0)
+  state, times = run["state"], run["times"]
+  errors = torch.cat([ps.training_metrics.error
+                      for ps in state.stats.values()])
+  if frequent_directions:
+    check(bool((errors == 0).all()), f"{label}: an FD error is not 0")
+  nbytes = state_bytes(state)
+  metric_bytes = sum(4 * 5 * ps.training_metrics.error.numel()
+                     for ps in state.stats.values())
+  check(abs(nbytes - metric_bytes - JAX_COMPRESSED_STATE_BYTES)
+        <= 1e-3 * JAX_COMPRESSED_STATE_BYTES,
+        f"{label}: state {nbytes} B ({metric_bytes} B of metrics) differs "
+        f"from the JAX count {JAX_COMPRESSED_STATE_BYTES} B by more than 0.1%")
+  kw = dict(ridge_epsilon=HYPERS["matrix_epsilon"])
+  if frequent_directions:
+    solve = lambda stats, prevs: lowrank.fd_update_root(
+        stats, 4, COMPRESSION_RANK, prevs, decay=HYPERS["beta2"], **kw)
+  else:
+    solve = lambda stats, prevs: lowrank.low_rank_root(
+        stats, 4, COMPRESSION_RANK, **kw)
+  median_ms = 1e3 * float(np.median(times[1:]))
+  log(f"  {steps} steps: step times {[round(1e3 * t, 3) for t in times]} ms")
+  resolved = host_resolve(label, run, params, solve)
+  # Host scopes only: tracing the device over cuSOLVER's per-matrix
+  # launches (thousands a step) outlasted a 20-minute call on the card.
+  profiled = profile_step(opt, state, params, grads, trace_device=False)
+  log(f"  {steps} steps: Newton launches {newton_root.LAUNCHES}; step times "
+      f"{[round(1e3 * t, 3) for t in times]} ms; median after step 1 "
+      f"{median_ms:.3f} ms; peak memory {run['peak'] / 2**30:.3f} GiB, of "
+      f"which {run['base'] / 2**30:.3f} GiB were held before the steps; "
+      f"state {nbytes} B ({metric_bytes} B of training metrics; JAX count "
+      f"{JAX_COMPRESSED_STATE_BYTES} B without them); max root error "
+      f"{run['max_error']:.3e}")
+  log(f"  one more step under torch.profiler: {json.dumps(profiled)}")
+  return dict(step_times_ms=[1e3 * t for t in times], step_ms=median_ms,
+              peak_bytes=run["peak"], base_bytes=run["base"],
+              state_bytes=nbytes, metric_bytes=metric_bytes,
+              max_error=run["max_error"], profiled_step=profiled, **resolved)
+
+
+def linalg_timings(device):
+  """The library calls of the compressed solves at the bench tree's
+  shapes, CUDA events, one timed call each after a warm-up: the FD
+  statistic's QR (mode "r") at the 6,176 members; on LOOPED_MEMBERS
+  Gaussian members, eigh and each SVD driver, which but "gesvda" loop
+  over the batch a matrix at a time.  "gesvda" (batched, through x^T x,
+  on the tall transpose) raises on the rank-deficient members the norm
+  vectors give the FD solve, so the solve takes the default driver."""
+  gen = torch.Generator(device=device).manual_seed(3)
+  n, d, w = 6176, 128, 128 + COMPRESSION_RANK
+  x = torch.randn(n, d, d, generator=gen, device=device)
+  few = slice(0, LOOPED_MEMBERS)
+  wide = torch.randn(LOOPED_MEMBERS, d, w, generator=gen, device=device)
+  psd = x[few] @ x[few].transpose(1, 2) / d + 1e-3 * torch.eye(
+      d, device=device)
+  calls = {
+      f"qr_r[{n},{d},{d}]": lambda: torch.linalg.qr(x, mode="r"),
+      f"eigh[{LOOPED_MEMBERS},{d},{d}]": lambda: torch.linalg.eigh(psd),
+  }
+  for driver in (None, "gesvd", "gesvdj"):
+    calls[f"svd_{driver or 'default'}[{LOOPED_MEMBERS},{d},{w}]"] = (
+        lambda driver=driver: torch.linalg.svd(wide, full_matrices=False,
+                                               driver=driver))
+  calls[f"svd_gesvda[{LOOPED_MEMBERS},{w},{d}]"] = lambda: torch.linalg.svd(
+      wide.transpose(1, 2), full_matrices=False, driver="gesvda")
+  out = {}
+  for name, fn in calls.items():
+    fn()
+    out[name] = cuda_ms(fn, 1)
+  log(f"  library calls (ms, one call each): {json.dumps(out)}")
+  return out
+
+
+def solver_timings(stats, kernel_ms, p=4):
+  """The per-matrix solvers at the main path's ``stats`` beside the Newton
+  kernel's ``kernel_ms``: "xla" (`pth_root.batched_inverse_pth_root`), its
+  eigh form and its LOBPCG-deflated form (k = 4), CUDA events, one call
+  each after a warm-up on 64 members."""
+  n, m, _ = stats.shape
+  solvers = {
+      "xla": dict(),
+      "eigh": dict(eigh=True),
+      "lobpcg_k4": dict(lobpcg_topk_precondition=4),
+  }
+  out = {"newton_kernel": kernel_ms}
+  for name, kw in solvers.items():
+    fn = lambda s, kw=kw: pth_root.batched_inverse_pth_root(s, p, **kw)
+    fn(stats[:64])
+    result = {}
+    out[name] = cuda_ms(lambda: result.update(metrics=fn(stats)[1]), 1)
+    errors = result["metrics"].error
+    check(not bool(torch.isnan(errors).any()), f"solver {name}: NaN errors")
+    out[f"{name}_rejected"] = int((errors >= 0.1).sum())
+  log(f"  per-matrix solvers at [{n},{m},{m}] p={p} (ms, one call each; "
+      f"members the failure gate would reject): {json.dumps(out)}")
+  return out
+
+
+def f1_check(device):
+  """A statistic above the kernel's MAX_M takes the per-matrix solver: a
+  [1100, 8] param at block 2048, one update on the card."""
+  opt = shampoo.distributed_shampoo(learning_rate=0.1, block_size=2048,
+                                    start_preconditioning_step=0)
+  gen = torch.Generator(device=device).manual_seed(4)
+  params = {"w": torch.randn(1100, 8, generator=gen, device=device)}
+  launches = newton_root.LAUNCHES
+  upd, state = opt.update({"w": torch.randn(1100, 8, generator=gen,
+                                            device=device)},
+                          opt.init(params), params)
+  errors = state.stats["w"].training_metrics.error
+  check(bool(torch.isfinite(upd["w"]).all()) and errors.max().item() < 0.1
+        and newton_root.LAUNCHES == launches,
+        "a [1100, 8] param at block 2048 did not solve without the kernel")
+  log(f"  [1100, 8] at block 2048: solved by the per-matrix solver, errors "
+      f"{errors.tolist()}")
 
 
 def phase_trainer(device, width=1024, rows=4096, steps=20):
@@ -746,11 +984,19 @@ def main():
   device = torch.device("cuda", 0)
   pth_root.require_true_f32()
   build_s = phase_build()
-  max_err, timings, chain = phase_kernel(device)
+  max_err, timings, chain, solvers = phase_kernel(device)
   main_path, f32_updates = phase_main_path(device)
   reduced = phase_memory_reduced(device, f32_updates,
                                  main_path["state_bytes"])
   del f32_updates
+  log("(c3) Sketchy: frequent_directions with compression_rank=32 on the "
+      "bench fixture")
+  # An FD step's SVD takes seconds (PERF.md), so 3 steps; FD needs 2,
+  # the second reading the first's sketch.
+  sketchy = phase_compressed("(c3)", device, 3, frequent_directions=True)
+  sketchy["library_ms"] = linalg_timings(device)
+  log("(c4) low-rank roots: compression_rank=32 on the bench fixture")
+  low_rank = phase_compressed("(c4)", device, 3, frequent_directions=False)
   phase_trainer(device)
   probe_launches = phase_probe()
   log("(f) card")
@@ -765,7 +1011,9 @@ def main():
   main = timings["[6144,128,128] p=4"]
   log(json.dumps({"main_path": {"build_s": build_s, **main_path},
                   "memory_reduced": reduced,
+                  "sketchy_fd": sketchy, "low_rank": low_rank,
                   "newton_root_timings": timings,
+                  "per_matrix_solvers": solvers,
                   "matmul_chain_timing": chain}))
   log(json.dumps({"kernels": [{
       "name": "newton_root", "route": "cuda", "source": SOURCES["newton_root"],

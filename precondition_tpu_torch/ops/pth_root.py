@@ -1,12 +1,13 @@
 """Matrix inverse p-th roots: the batched solvers and their helpers.
 
-PyTorch counterpart of `precondition_tpu/ops/pth_root.py` without its
-LOBPCG deflation: the solver's metrics record, the padding masks, the
-static-exponent matrix power, a batched power iteration, and two batched
-solvers of ``(A + eps I)^{-1/p}`` over a ``[N, m, m]`` stack,
+PyTorch counterpart of `precondition_tpu/ops/pth_root.py`: the solver's
+metrics record, the padding masks, the static-exponent matrix power, a
+batched power iteration, `pth_root_difference`, and two batched solvers of
+``(A + eps I)^{-1/p}`` over a ``[N, m, m]`` stack,
 `batched_inverse_pth_root` (the JAX package's per-matrix coupled Newton,
-`matrix_inverse_pth_root` under `vmap`) and its ``eigh=True`` form.  The
-Newton-root kernel and its twin live in `ops/kernels/newton_root.py`.
+`matrix_inverse_pth_root` under `vmap`, with its LOBPCG deflation) and its
+``eigh=True`` form.  The Newton-root kernel and its twin live in
+`ops/kernels/newton_root.py`.
 """
 
 from __future__ import annotations
@@ -16,11 +17,20 @@ from typing import Optional, Tuple
 
 import torch
 
-from precondition_tpu_torch.utils.diagnostics import InversePthRootDiagnostics
+from precondition_tpu_torch.utils.diagnostics import (
+    FDDiagnostics, InversePthRootDiagnostics, LOBPCGDiagnostics)
 
 _EPSILON = 1e-25
 _METRIC_FIELDS = ("error", "iterations", "error_ratio", "max_eigenvalue",
                   "retries")
+# The optional reports of `RootMetrics`, each None unless asked for, and
+# their classes.
+REPORTS = {
+    "lobpcg": LOBPCGDiagnostics,
+    "inverse_pth_root_diagnostics": InversePthRootDiagnostics,
+    "conditioned_inverse_pth_root_diagnostics": InversePthRootDiagnostics,
+    "fd": FDDiagnostics,
+}
 # Seed of the power iteration's start vector.  The JAX package draws it
 # from `jax.random.PRNGKey(1729)`; torch cannot reproduce those bits, so
 # callers that need JAX's exact vector pass it as ``v0``.
@@ -33,9 +43,12 @@ class RootMetrics:
 
   The fields of the JAX package's `RootMetrics`: max entrywise error of
   ``M_k - I``, Newton iterations, final error ratio, the top eigenvalue
-  that scaled the ridge, and how many ridge rounds ran.  The entrywise
-  residual report ``inverse_pth_root_diagnostics`` is None unless asked
-  for (`generate_detailed_metrics`), where JAX holds a `MaskedNode`.
+  that scaled the ridge, and how many ridge rounds ran.  The reports are
+  None unless asked for, where JAX holds a `MaskedNode`: the detailed
+  metrics (`generate_detailed_metrics`) are ``lobpcg``, the entrywise
+  residual ``inverse_pth_root_diagnostics`` and that of the deflated
+  problem, ``conditioned_inverse_pth_root_diagnostics``; ``fd`` is the
+  frequent-directions report (`generate_fd_metrics`).
   """
 
   error: torch.Tensor
@@ -43,33 +56,51 @@ class RootMetrics:
   error_ratio: torch.Tensor
   max_eigenvalue: torch.Tensor
   retries: torch.Tensor
+  lobpcg: Optional[LOBPCGDiagnostics] = None
   inverse_pth_root_diagnostics: Optional[InversePthRootDiagnostics] = None
+  conditioned_inverse_pth_root_diagnostics: Optional[
+      InversePthRootDiagnostics] = None
+  fd: Optional[FDDiagnostics] = None
 
   @classmethod
-  def zeros(cls, n: int, detailed: bool = False, device=None
-            ) -> "RootMetrics":
-    """``[n]`` metrics of zeros, with a zero residual report if
-    ``detailed``."""
+  def zeros(cls, n: int, detailed: bool = False, fd: bool = False,
+            device=None) -> "RootMetrics":
+    """``[n]`` metrics of zeros, with zero detailed reports if
+    ``detailed`` and a zero FD report if ``fd``."""
     fields = torch.zeros((5, n), dtype=torch.float32, device=device)
-    return cls(*fields, inverse_pth_root_diagnostics=(
-        InversePthRootDiagnostics.zeros(n, device) if detailed else None))
+    out = cls(*fields)
+    if detailed:
+      out.lobpcg = LOBPCGDiagnostics.zeros(n, device)
+      out.inverse_pth_root_diagnostics = InversePthRootDiagnostics.zeros(
+          n, device)
+      out.conditioned_inverse_pth_root_diagnostics = (
+          InversePthRootDiagnostics.zeros(n, device))
+    if fd:
+      out.fd = FDDiagnostics.zeros(n, device)
+    return out
 
   def map(self, fn) -> "RootMetrics":
-    """Apply ``fn`` to every field, the diagnostics' included."""
-    diag = self.inverse_pth_root_diagnostics
+    """Apply ``fn`` to every field, the reports' included."""
+    reports = {f: getattr(self, f) for f in REPORTS}
     return RootMetrics(
         **{f: fn(getattr(self, f)) for f in _METRIC_FIELDS},
-        inverse_pth_root_diagnostics=None if diag is None else diag.map(fn))
+        **{f: None if r is None else r.map(fn) for f, r in reports.items()})
+
+  def fill(self, template: "RootMetrics") -> "RootMetrics":
+    """These metrics with each report they lack taken from ``template``."""
+    return dataclasses.replace(template, **{
+        f.name: getattr(self, f.name) for f in dataclasses.fields(self)
+        if getattr(self, f.name) is not None})
 
   @staticmethod
   def cat(parts) -> "RootMetrics":
-    diags = [p.inverse_pth_root_diagnostics for p in parts]
+    reports = {}
+    for f, cls in REPORTS.items():
+      values = [getattr(p, f) for p in parts]
+      reports[f] = None if values[0] is None else cls.cat(values)
     return RootMetrics(
         **{f: torch.cat([getattr(p, f) for p in parts])
-           for f in _METRIC_FIELDS},
-        inverse_pth_root_diagnostics=(
-            None if diags[0] is None
-            else InversePthRootDiagnostics.cat(diags)))
+           for f in _METRIC_FIELDS}, **reports)
 
 
 def require_true_f32() -> None:
@@ -83,6 +114,21 @@ def require_true_f32() -> None:
   torch.backends.cuda.matmul.allow_tf32 = False
   if torch.backends.cuda.matmul.allow_tf32:
     raise RuntimeError("TF32 matmuls could not be switched off")
+
+
+def nan_safe(decompose, a: torch.Tensor):
+  """``decompose(a)`` (`torch.linalg.eigh`, `svd`, ...) on a ``[N, ...]``
+  batch, with every output of a member that holds a non-finite entry NaN.
+
+  LAPACK under JAX returns NaN for such a member, and the failure gate
+  rejects its root; torch raises instead, so the member is decomposed as
+  zeros and its outputs set to NaN afterwards.  No host sync.
+  """
+  bad = ~torch.isfinite(a).flatten(1).all(dim=1)
+  outs = decompose(torch.where(bad.view((-1,) + (1,) * (a.dim() - 1)), 0.0,
+                               a))
+  return tuple(torch.where(bad.view((-1,) + (1,) * (o.dim() - 1)), torch.nan,
+                           o) for o in outs)
 
 
 def _padding_mask(n: int, padding_start, dtype, device=None) -> torch.Tensor:
@@ -209,6 +255,46 @@ def _rowmax_abs(x: torch.Tensor) -> torch.Tensor:
   return x.abs().amax(dim=(1, 2))
 
 
+def pth_root_difference(w: torch.Tensor, alpha: torch.Tensor,
+                        beta: torch.Tensor, p: int) -> torch.Tensor:
+  """``(w + alpha)^{-1/p} - (w + beta)^{-1/p}`` without cancellation.
+
+  The larger term is factored out and the rest taken in log space with
+  ``expm1``/``log1p``, on whichever side has the smaller ``log1p``
+  argument.  The arguments broadcast.
+  """
+  a = w + alpha
+  b = w + beta
+  d = alpha - beta
+  exp = -1.0 / p
+
+  def stable(base, diff):
+    return (base ** exp) * torch.expm1(exp * torch.log1p(diff / base))
+
+  return torch.where((d / b).abs() < (d / a).abs(), -stable(a, -d),
+                     stable(b, d))
+
+
+def _deflate(mat, k, max_iter, diagnose):
+  """LOBPCG's top-k pairs of each member, and the member with them
+  deflated to the smallest of the k: ``(deflated, eigvals [N, k],
+  eigvecs [N, m, k], LOBPCGDiagnostics or None)``."""
+  # Local import: lobpcg imports this module for `nan_safe`.
+  from precondition_tpu_torch.ops import lobpcg
+
+  n, m, _ = mat.shape
+  search = torch.zeros((n, m, k), dtype=mat.dtype, device=mat.device)
+  search[:, :k] = torch.eye(k, dtype=mat.dtype, device=mat.device)
+  eigvals, eigvecs, iters = lobpcg.lobpcg_standard(mat, search,
+                                                   max_iter or k)
+  report = (LOBPCGDiagnostics.create(mat, eigvals, eigvecs, iters)
+            if diagnose else None)
+  scaled = eigvecs * torch.sqrt(
+      eigvals - eigvals.amin(dim=1, keepdim=True))[:, None, :]
+  return (mat - torch.bmm(scaled, scaled.transpose(1, 2)), eigvals, eigvecs,
+          report)
+
+
 def batched_inverse_pth_root(
     stats: torch.Tensor,
     p: int,
@@ -226,6 +312,8 @@ def batched_inverse_pth_root(
     warm_error_threshold: float = 0.05,
     generate_diagnostics: bool = False,
     cold_power_iteration_tolerance: Optional[float] = None,
+    lobpcg_topk_precondition: int = 0,
+    lobpcg_max_iter: int = 0,
 ) -> Tuple[torch.Tensor, RootMetrics]:
   """``(A + eps I)^{-1/p}`` for every member of a ``[N, m, m]`` PSD batch.
 
@@ -252,6 +340,14 @@ def batched_inverse_pth_root(
     start ``C (A + rI) C``, ``C = prev^{p/2}``, one extra round.
   * ``padding_starts`` masks each member to its valid size; a member of
     size 0 returns zeros with error 0.
+  * ``lobpcg_topk_precondition = k > 0`` deflates each member before the
+    Newton solve: `ops.lobpcg.lobpcg_standard` (``lobpcg_max_iter``
+    iterations, k when 0; JAX's own routine, so its unconverged pairs are
+    JAX's) finds the top k pairs, and their eigenvalues drop to the
+    smallest of them.  The largest of the k scales the ridge, the solve is
+    cold, and the root is re-deflated with `pth_root_difference`; the
+    reported error is ``max |H^p (A + rI) - I|`` against the undeflated
+    problem at the ridge of the last round.
 
   Where this differs from the Newton-root kernel and its twin
   (`ops/kernels/newton_root.py`), which port the Pallas kernel's own
@@ -271,7 +367,9 @@ def batched_inverse_pth_root(
   Returns:
     ``(roots [N, m, m] in stats.dtype, RootMetrics with [N] fields)``;
     with ``generate_diagnostics`` the metrics carry the entrywise residual
-    report against the ridge of the round that produced each root.
+    report against the ridge of the round that produced each root, and
+    under LOBPCG the eigenpairs' report and the residual of the deflated
+    problem (zeros without LOBPCG).
   """
   if stats.dim() != 3 or stats.shape[1] != stats.shape[2]:
     raise ValueError(f"expected a [N, m, m] batch, got {tuple(stats.shape)}")
@@ -288,9 +386,17 @@ def batched_inverse_pth_root(
                                  relative_matrix_epsilon,
                                  generate_diagnostics)
     return roots.to(stats.dtype), metrics
-  warm = prevs is not None and p % 2 == 0
+  # A root of the undeflated problem cannot seed the deflated one.
+  warm = prevs is not None and p % 2 == 0 and lobpcg_topk_precondition == 0
+  original = mat
+  eigvals = eigvecs = lobpcg_report = None
+  if lobpcg_topk_precondition > 0:
+    mat, eigvals, eigvecs, lobpcg_report = _deflate(
+        mat, lobpcg_topk_precondition, lobpcg_max_iter, generate_diagnostics)
 
-  if relative_matrix_epsilon:
+  if eigvals is not None and relative_matrix_epsilon:
+    max_ev = eigvals.amax(dim=1)
+  elif relative_matrix_epsilon:
     loose = warm or cold_power_iteration_tolerance is not None
     tol = 1e-2 if warm else (cold_power_iteration_tolerance or 1e-6)
     max_ev = power_iteration(mat, num_iters=100, error_tolerance=tol,
@@ -376,19 +482,41 @@ def batched_inverse_pth_root(
       retries = retries + failed.to(f32)
       failed = failed & (r_error > retry_loop_error_threshold)
 
+  # The ridge the ladder last solved at: a warm round 0 runs at the base
+  # ridge, cold round i at ridge * 10^i.
+  eff_pow = torch.clamp(retries - (2.0 if warm else 1.0), min=0.0)
+  eff_ridge = (ridge * torch.pow(10.0, eff_pow))[:, None, None]
+  conditioned_root = root
+  if eigvals is not None:
+    # The deflated directions were solved at the smallest of the k
+    # eigenvalues; put back the difference of their true inverse roots.
+    diff = pth_root_difference(ridge[:, None],
+                               eigvals.amin(dim=1, keepdim=True), eigvals, p)
+    scaled = eigvecs * torch.sqrt(diff)[:, None, :]
+    root = root - torch.bmm(scaled, scaled.transpose(1, 2))
+    err = torch.bmm(mat_power(root, p), original + eff_ridge * eye) - eye
+    error = _rowmax_abs(err * mask[:, :, None] * mask[:, None, :])
+
   is_padding = padding_starts.to(dev) == 0
   root = torch.where(is_padding[:, None, None], 0.0, root)
   error = torch.where(is_padding, 0.0, error)
   metrics = RootMetrics(error=error, iterations=iters, error_ratio=ratio,
                         max_eigenvalue=max_ev.to(f32), retries=retries)
   if generate_diagnostics:
-    # The ridge the ladder last solved at: a warm round 0 runs at the base
-    # ridge, cold round i at ridge * 10^i.
-    eff_pow = torch.clamp(retries - (2.0 if warm else 1.0), min=0.0)
-    damped = mat + (ridge * torch.pow(10.0, eff_pow))[:, None, None] * eye
-    diag = InversePthRootDiagnostics.create(root, damped, p, padding_starts)
-    metrics.inverse_pth_root_diagnostics = diag.map(
-        lambda x: torch.where(is_padding, 0.0, x))
+    suppress = lambda x: torch.where(is_padding, 0.0, x)
+    metrics.inverse_pth_root_diagnostics = InversePthRootDiagnostics.create(
+        root, original + eff_ridge * eye, p, padding_starts).map(suppress)
+    if eigvals is None:
+      metrics.lobpcg = LOBPCGDiagnostics.zeros(n, dev)
+      metrics.conditioned_inverse_pth_root_diagnostics = (
+          InversePthRootDiagnostics.zeros(n, dev))
+    else:
+      # ``mat`` holds the deflated problem.
+      metrics.lobpcg = lobpcg_report.map(suppress)
+      metrics.conditioned_inverse_pth_root_diagnostics = (
+          InversePthRootDiagnostics.create(
+              conditioned_root, mat + eff_ridge * eye, p,
+              padding_starts).map(suppress))
   return root.to(stats.dtype), metrics
 
 
@@ -414,7 +542,7 @@ def _eigh_roots(mat, eye, mask, padding_starts, p, ridge_epsilon,
   ridge = (ridge_epsilon * torch.clamp(max_ev, min=error_tolerance)
            )[:, None, None]
   regularized = mat + ridge * eye
-  e, u = torch.linalg.eigh(regularized)
+  e, u = nan_safe(torch.linalg.eigh, regularized)
   # eigh sorts ascending: the padding's zero eigenvalues come first.
   flipped = mask.flip(-1)
   e = e * flipped
@@ -434,6 +562,8 @@ def _eigh_roots(mat, eye, mask, padding_starts, p, ridge_epsilon,
   if generate_diagnostics:
     diag = InversePthRootDiagnostics.create(root, regularized, p,
                                             padding_starts)
+    metrics = metrics.fill(RootMetrics.zeros(n, detailed=True,
+                                             device=mat.device))
     metrics.inverse_pth_root_diagnostics = diag.map(
         lambda x: torch.where(is_padding, 0.0, x))
   return root, metrics

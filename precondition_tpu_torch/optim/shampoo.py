@@ -17,18 +17,28 @@ number of preconditioned axes.  One update has three phases:
    graft-norm rescale, momentum and Nesterov.
 
 State layouts (`Preconditioner`): uniform-block params keep per-axis
-``[nb, d, d]`` stacks; ragged params, and every param under
-``best_effort_memory_usage_reduction``, keep the JAX package's per-block
-lists, which that mode stores as int16 `QuantizedValue`s with an f32
+``[nb, d, d]`` stacks in the default mode; ragged params, and every param
+under ``best_effort_memory_usage_reduction``, ``compression_rank`` or
+``frequent_directions``, keep the JAX package's per-block lists, which the
+memory-reduced mode stores as int16 `QuantizedValue`s with an f32
 diagonal beside int8 momenta.
+
+Compressed modes (`ops/lowrank.py`): with ``compression_rank = k != 0`` a
+block of size ``d > |k| + 2`` keeps a packed ``[d, |k| + 2]`` root, solved
+by one batched eigendecomposition per exponent (`low_rank_root`); with
+``frequent_directions`` its statistic is the gradient's Cholesky factor
+(one batched QR per group of equal blocks) and its root a
+frequent-directions sketch (`fd_update_root`, one batched SVD).  Smaller
+blocks keep full roots.  ``lobpcg_topk_precondition`` deflates the full
+roots' statistics first and takes the per-matrix solver.
 
 `distributed_shampoo` returns the functional ``init``/``update`` pair with
 the JAX signature; `DistributedShampoo` wraps it as a
 `torch.optim.Optimizer`.  Parameters are a flat dict of name -> tensor
 (`utils.convert.params_from_numpy` flattens a JAX tree into one).
-Options the port does not have yet raise `NotImplementedError` naming the
-ROADMAP.md item that will port them.  Frequency gates are host-side ``if``s
-on the step count.
+Distribution and the precision options raise `NotImplementedError` naming
+their ROADMAP.md item.  Frequency gates are host-side ``if``s on the step
+count.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from precondition_tpu_torch.ops import lowrank
 from precondition_tpu_torch.ops import pth_root
 from precondition_tpu_torch.ops.kernels import newton_root
 from precondition_tpu_torch.ops.pth_root import RootMetrics
@@ -76,15 +87,18 @@ class ParameterStats:
   """Per-parameter Shampoo state.
 
   ``statistics`` and ``preconditioners`` hold one ``[nb, d, d]`` stack per
-  preconditioned axis (stacked layout) or one ``[d, d]`` entry per (block,
-  axis), block-major (legacy layout; `QuantizedValue`s in the quantized
-  mode, as are both momenta there).
+  preconditioned axis (stacked layout) or one entry per (block, axis),
+  block-major (legacy layout; `QuantizedValue`s in the quantized mode, as
+  are both momenta there).  A compressed legacy entry's root is a packed
+  f32 ``[d, |k| + 2]`` buffer, and in the frequent-directions mode its
+  statistic is the last gradient's Cholesky factor.
   """
   diagonal_statistics: Optional[torch.Tensor]  # grafting accumulator
   statistics: list                     # Kronecker factors
   preconditioners: list                # matching inverse roots
   diagonal_momentum: Union[torch.Tensor, QuantizedValue]  # grafting's
   momentum: Union[torch.Tensor, QuantizedValue]  # the preconditioned one's
+  avg_grad: Optional[torch.Tensor]     # FD gradient average (average_grad)
   training_metrics: Optional[RootMetrics]  # [num_statistics] fields
 
 
@@ -105,6 +119,7 @@ class _SolveChunk(NamedTuple):
   slots: Tuple[int, ...]  # (axis,) of a stacked param; a legacy one's entries
   d: int                 # (unpadded) matrix size
   exp: int               # root exponent
+  mode: str              # solver: "full", "lowrank" or "fd"
   indices: Tuple[int, ...]  # global statistic index of each matrix
   stacked: bool
 
@@ -161,26 +176,32 @@ class Preconditioner:
   every param in the quantized mode.  The legacy methods take group hooks:
   ``to_float`` turns a list of equal-shape entries into one ``[B, d, d]``
   float stack and ``from_float`` turns such a stack back into entries, so
-  a group is decoded and encoded in one call each.
+  a group is decoded and encoded in one call each.  With a
+  ``compression_rank`` the legacy roots of blocks it compresses are packed
+  ``[d, |k| + 2]`` buffers (`ops.lowrank`).
   """
 
   def __init__(self, param, block_size, merge_small_dims_block_size,
                best_effort_shape_interpretation,
-               preconditioner_type=PreconditionerType.ALL):
+               preconditioner_type=PreconditionerType.ALL,
+               compression_rank=0):
     self._original_shape = tuple(param.shape)
     self._transformed_shape, self._partitioner, self._precond_dims = (
         _block_plan(self._original_shape, block_size,
                     merge_small_dims_block_size,
                     bool(best_effort_shape_interpretation),
                     PreconditionerType(preconditioner_type)))
+    self._compression_rank = compression_rank
 
   def exponent_for_preconditioner(self) -> int:
     # root exponent p = 2 * number of Kronecker-factored axes.
     return 2 * sum(self._precond_dims)
 
   def shapes_for_preconditioners(self) -> List[List[int]]:
-    """``[d, d]`` per (block, preconditioned axis), in partition order."""
-    return [[block[axis], block[axis]]
+    """Root shape per (block, preconditioned axis), in partition order:
+    ``[d, d]``, or ``[d, |k| + 2]`` where compression saves memory."""
+    return [[block[axis],
+             lowrank.precond_dim(self._compression_rank, block[axis])]
             for block in self._partitioner.block_shapes()
             for axis, on in enumerate(self._precond_dims) if on]
 
@@ -188,8 +209,10 @@ class Preconditioner:
     return len(self.shapes_for_preconditioners())
 
   def stacked_layout(self) -> bool:
-    """Whether the blocks are uniform (no ragged trailing block)."""
-    return self._partitioner.uniform_block_shape() is not None
+    """Whether the blocks are uniform (no ragged trailing block) and the
+    roots full matrices."""
+    return (self._partitioner.uniform_block_shape() is not None
+            and self._compression_rank == 0)
 
   def stacked_shapes(self) -> List[tuple]:
     """Per preconditioned axis: ``(num_blocks, d, d)`` stack shapes."""
@@ -254,12 +277,15 @@ class Preconditioner:
     return groups
 
   def updated_statistics_from_grad(self, stats, grad, w1, w2,
-                                   to_float=_stack, from_float=_unstack
-                                   ) -> list:
+                                   to_float=_stack, from_float=_unstack,
+                                   frequent_directions=False) -> list:
     """EMA ``w1 * S + w2 * G_(a) G_(a)^T`` for every block/axis entry.
 
     One batched Gram product per (block shape, axis) group, decoded with
-    ``to_float`` and encoded with ``from_float`` a group at a time.
+    ``to_float`` and encoded with ``from_float`` a group at a time.  In the
+    frequent-directions mode a compressed group's entries become the
+    gradient's Cholesky factors instead, one batched QR for the group
+    (`ops.lowrank.frequent_directions_update`).
     """
     reshaped = grad.reshape(self._transformed_shape)
     uniform = self._partitioner.uniform_block_shape()
@@ -279,18 +305,24 @@ class Preconditioner:
     new_stats = [None] * len(stats)
     for (shape, axis), members in groups.items():
       gs_group = take(members)
-      flat = gs_group.movedim(axis + 1, 1).reshape(len(members), shape[axis],
-                                                   -1)
-      grams = torch.bmm(flat, flat.transpose(1, 2))
-      olds = to_float([stats[i] for i, _ in members])
-      for (i, _), new in zip(members, from_float(w1 * olds + w2 * grams)):
+      if frequent_directions and lowrank.should_compress(
+          self._compression_rank, shape[axis]):
+        news = lowrank.frequent_directions_update(gs_group, axis)
+      else:
+        flat = gs_group.movedim(axis + 1, 1).reshape(len(members),
+                                                     shape[axis], -1)
+        grams = torch.bmm(flat, flat.transpose(1, 2))
+        news = w1 * to_float([stats[i] for i, _ in members]) + w2 * grams
+      for (i, _), new in zip(members, from_float(news)):
         new_stats[i] = new
     return new_stats
 
   def preconditioned_grad(self, grad, preconditioners, to_float=_stack
                           ) -> torch.Tensor:
     """Apply the per-block roots, one batched contraction per axis for each
-    group of equal-shape blocks; ``to_float`` decodes a group's roots."""
+    group of equal-shape blocks (a packed one applied by
+    `ops.lowrank.apply_low_rank_preconditioner`); ``to_float`` decodes a
+    group's roots."""
     reshaped = grad.reshape(self._transformed_shape)
     n_per_block = sum(self._precond_dims)
     uniform = self._partitioner.uniform_block_shape()
@@ -314,7 +346,11 @@ class Preconditioner:
           continue
         pres = to_float([preconditioners[b * n_per_block + slot]
                          for b in idxs])
-        g = torch.einsum("bi...,bij->b...j", g, pres)
+        if pres.shape[-1] != pres.shape[-2]:
+          g = lowrank.apply_low_rank_preconditioner(g, pres,
+                                                    self._compression_rank)
+        else:
+          g = torch.einsum("bi...,bij->b...j", g, pres)
         slot += 1
       if blocks is None:
         merged = self._partitioner.merge_stacked(g)
@@ -376,20 +412,21 @@ def distributed_shampoo(
 ) -> GradientTransformation:
   """Builds the distributed Shampoo optimizer.
 
-  Arguments carry the JAX package's names and defaults.  ``precision`` and
-  ``tensordot_precision`` must stay None: every product runs in true f32
-  (TF32 is switched off), which is the JAX package's HIGHEST.
-  ``lobpcg_max_iter`` only matters with LOBPCG, which raises.
+  Arguments carry the JAX package's names, defaults and validation.
+  ``precision`` and ``tensordot_precision`` must stay None: every product
+  runs in true f32 (TF32 is switched off), which is the JAX package's
+  HIGHEST.
 
-  ``solver_backend`` picks the Newton solver: "auto" and "pallas" take the
-  Newton-root kernel (`ops/kernels/newton_root.py`: the CUDA kernel for a
-  CUDA tensor, its plain twin on the CPU), with one batched power
-  iteration at a loose 1% exit for the ridge; "xla" takes the batched
-  solver `ops.pth_root.batched_inverse_pth_root`, the JAX package's
-  per-matrix solver.  ``eigh=True`` solves by eigendecomposition whatever
-  the backend.
+  ``solver_backend`` picks the Newton solver of full roots: "auto" and
+  "pallas" take the Newton-root kernel (`ops/kernels/newton_root.py`: the
+  CUDA kernel for a CUDA tensor, its plain twin on the CPU), with one
+  batched power iteration at a loose 1% exit for the ridge; "xla" takes
+  the batched solver `ops.pth_root.batched_inverse_pth_root`, the JAX
+  package's per-matrix solver, which also takes every batch the kernel
+  cannot (``eigh=True``, LOBPCG, statistics larger than
+  `newton_root.MAX_M`).  Compressed roots take their eigensolvers
+  (`ops/lowrank.py`) whatever the backend.
   """
-  del lobpcg_max_iter
   unported = [
       (batch_axis_name is not None, "batch_axis_name", "8 (distribution)"),
       (statistics_partition_spec is not None
@@ -398,13 +435,6 @@ def distributed_shampoo(
       (num_devices_for_pjit not in (None, 1), "num_devices_for_pjit",
        "8 (distribution)"),
       (shard_optimizer_states, "shard_optimizer_states", "8 (distribution)"),
-      (compression_rank != 0 or frequent_directions or reset_preconditioner
-       or average_grad, "compression and frequent directions",
-       "9 (low-rank and FD roots)"),
-      (generate_fd_metrics, "generate_fd_metrics",
-       "9 (low-rank and FD roots)"),
-      (lobpcg_topk_precondition != 0, "LOBPCG deflation",
-       "11 (LOBPCG)"),
       (precision is not None or tensordot_precision is not None,
        "precision options (products always run in true f32)",
        "5a (refused: every product runs in true f32)"),
@@ -418,8 +448,28 @@ def distributed_shampoo(
       GraftingType.RMSPROP, GraftingType.RMSPROP_NORMALIZED):
     raise ValueError(
         "clip_by_scaled_gradient_norm only applies to RMSProp grafting.")
+  if frequent_directions and compression_rank <= 0:
+    raise ValueError(
+        "frequent_directions requires a positive compression_rank.")
+  # Windowed FD: the EMA window becomes a hard restart every
+  # ~1/(1 - beta2) steps (the packed roots are zeroed) with no decay.
+  reset_frequency = None
+  if reset_preconditioner:
+    if not frequent_directions:
+      raise ValueError("reset_preconditioner requires frequent_directions.")
+    reset_frequency = (int(np.round(1.0 / (1.0 - beta2)))
+                       if beta2 != 1.0 else None)
+    beta2 = 1.0
+  # As in JAX, generate_fd_metrics is silently off without FD.
   generate_detailed_metrics = (generate_detailed_metrics
                                and generate_training_metrics)
+  generate_fd_metrics = (generate_fd_metrics and generate_training_metrics
+                         and frequent_directions)
+  if delayed_preconditioning and frequent_directions:
+    raise ValueError(
+        "delayed_preconditioning cannot compose with frequent_directions: "
+        "the FD solve consumes each gradient factor exactly once, and the "
+        "delay would feed it the factor a second time.")
 
   graft_has_diag_stats = graft_type in (
       GraftingType.ADAGRAD, GraftingType.RMSPROP,
@@ -430,15 +480,16 @@ def distributed_shampoo(
   def preconditioner_from_params(param) -> Preconditioner:
     return Preconditioner(param, block_size, merge_small_dims_block_size,
                           best_effort_shape_interpretation,
-                          precondtioner_type)
+                          precondtioner_type, compression_rank)
 
   def _skip_preconditioning(param) -> bool:
     return (param.dim() < skip_preconditioning_rank_lt or
             any(s > skip_preconditioning_dim_size_gt for s in param.shape))
 
   # The quantized mode stores momenta as int8 and the legacy layout's
-  # statistics and roots as int16 plus an f32 diagonal.  The matrix hooks
-  # work on groups of equal-shape entries (see `Preconditioner`).
+  # square statistics and roots as int16 plus an f32 diagonal; packed roots
+  # stay f32.  The matrix hooks work on groups of equal-shape entries (see
+  # `Preconditioner`).
   def _quantize_momentum(x):
     if quantized:
       return QuantizedValue.from_float_value(x, torch.int8)
@@ -453,28 +504,32 @@ def distributed_shampoo(
     return torch.stack(entries)
 
   def _matrices_from_float(stack: torch.Tensor) -> list:
-    if quantized:
+    if quantized and stack.shape[-1] == stack.shape[-2]:
       return QuantizedValue.from_float_value(
           stack, torch.int16, extract_diagonal=True, batch_dims=1).unbind()
     return list(stack.unbind(0))
 
-  # The stacked layout serves uniform-block params in the f32 mode only.
-  use_stacked = not quantized
+  # The stacked layout serves uniform-block params in the default mode.
+  use_stacked = (not quantized and not frequent_directions
+                 and compression_rank == 0)
 
   # --------------------------------------------------------------- init --
   def _init_legacy(shapes, device):
-    """Identity-started statistics and roots of the legacy layout, encoded
-    by groups of one size."""
+    """Statistics ``eps I`` and identity roots (packed roots zeros) of the
+    legacy layout, encoded by groups of one shape."""
     statistics = [None] * len(shapes)
     preconditioners = [None] * len(shapes)
-    by_size: Dict[int, List[int]] = {}
-    for j, (d, _) in enumerate(shapes):
-      by_size.setdefault(d, []).append(j)
-    for d, js in by_size.items():
+    by_shape: Dict[tuple, List[int]] = {}
+    for j, shape in enumerate(shapes):
+      by_shape.setdefault(tuple(shape), []).append(j)
+    for (d, width), js in by_shape.items():
       eye = torch.eye(d, dtype=torch.float32, device=device).expand(
           len(js), d, d)
+      # A truncated identity means nothing in the packed layout.
+      root = (eye.clone() if width == d else torch.zeros(
+          (len(js), d, width), dtype=torch.float32, device=device))
       for out, value in ((statistics, matrix_epsilon * eye),
-                         (preconditioners, eye.clone())):
+                         (preconditioners, root)):
         for j, entry in zip(js, _matrices_from_float(value)):
           out[j] = entry
     return statistics, preconditioners
@@ -499,7 +554,7 @@ def distributed_shampoo(
       metrics = None
       if generate_training_metrics:
         metrics = RootMetrics.zeros(num_stats, generate_detailed_metrics,
-                                    param.device)
+                                    generate_fd_metrics, param.device)
       stats[name] = ParameterStats(
           diagonal_statistics=(torch.zeros_like(param)
                                if graft_has_diag_stats else None),
@@ -507,13 +562,24 @@ def distributed_shampoo(
           preconditioners=preconditioners,
           diagonal_momentum=_quantize_momentum(torch.zeros_like(param)),
           momentum=_quantize_momentum(torch.zeros_like(param)),
+          avg_grad=(torch.zeros_like(param)
+                    if frequent_directions and average_grad else None),
           training_metrics=metrics)
     return ShampooState(count=0, stats=stats)
 
   # --------------------------------------------------- statistics update --
   def _update_statistics(grad, state: ParameterStats, param, step):
-    if (_skip_preconditioning(param)
-        or step % statistics_compute_steps != 0):
+    if _skip_preconditioning(param):
+      return state
+    if frequent_directions and average_grad:
+      # The FD sketch sees the mean gradient of the statistics window.
+      if statistics_compute_steps == 1 or step % statistics_compute_steps == 1:
+        avg = grad
+      else:
+        avg = state.avg_grad + grad
+      state = dataclasses.replace(state, avg_grad=avg)
+      grad = avg / statistics_compute_steps
+    if step % statistics_compute_steps != 0:
       return state
     pre = preconditioner_from_params(param)
     if _is_stacked(state.statistics):
@@ -522,25 +588,33 @@ def distributed_shampoo(
     else:
       new = pre.updated_statistics_from_grad(
           state.statistics, grad, w1=beta2, w2=w2_ema,
-          to_float=_matrices_to_float, from_float=_matrices_from_float)
+          to_float=_matrices_to_float, from_float=_matrices_from_float,
+          frequent_directions=frequent_directions)
     return dataclasses.replace(state, statistics=new)
 
   # ------------------------------------------------- preconditioner solve --
   def _solve_batched(stacked, exp, pads, prevs=None):
-    """Root solve of one exponent's ``[N, m, m]`` batch.
+    """Full-root solve of one exponent's ``[N, m, m]`` batch.
 
-    On the kernel's path the top eigenvalues come from one batched power
-    iteration over the whole group with a loose 1% relative exit: the
-    estimate only scales the relative ridge, power iteration converges
-    from below, and the retry ladder and the failure gate guard the rare
-    member that needs a larger ridge.  The kernel reports scalar metrics
-    only, so the detailed residuals are rebuilt after it.
+    The Newton-root kernel takes the batch unless ``eigh``, "xla",
+    LOBPCG or a size above `newton_root.MAX_M` sends it to the per-matrix
+    solver `pth_root.batched_inverse_pth_root`, as JAX sends such batches
+    to its vmapped solver.  On the kernel's path the top eigenvalues come
+    from one batched power iteration over the whole group with a loose 1%
+    relative exit: the estimate only scales the relative ridge, power
+    iteration converges from below, and the retry ladder and the failure
+    gate guard the rare member that needs a larger ridge.  The kernel
+    reports scalar metrics only, so the detailed residuals are rebuilt
+    after it.
     """
-    if eigh or solver_backend == "xla":
+    if (eigh or solver_backend == "xla" or lobpcg_topk_precondition
+        or stacked.shape[-1] > newton_root.MAX_M):
       return pth_root.batched_inverse_pth_root(
           stacked, exp, pads, prevs, ridge_epsilon=matrix_epsilon,
           relative_matrix_epsilon=relative_matrix_epsilon, eigh=eigh,
-          generate_diagnostics=generate_detailed_metrics)
+          generate_diagnostics=generate_detailed_metrics,
+          lobpcg_topk_precondition=lobpcg_topk_precondition,
+          lobpcg_max_iter=lobpcg_max_iter)
     max_evs = None
     if relative_matrix_epsilon:
       max_evs = pth_root.power_iteration(
@@ -561,6 +635,23 @@ def distributed_shampoo(
               roots, stacked + eff[:, None, None] * eye, exp, pads))
     return roots, metrics
 
+  def _solve_group(mode, exp, stats, pads, prevs, step):
+    """One (exponent, mode) group's roots and metrics.  ``prevs`` are the
+    previous roots (packed for "fd", where they are required)."""
+    if mode == "full":
+      return _solve_batched(stats, exp, pads, prevs)
+    if mode == "lowrank":
+      return lowrank.low_rank_root(
+          stats, exp, compression_rank, ridge_epsilon=matrix_epsilon,
+          relative_matrix_epsilon=relative_matrix_epsilon,
+          padding_starts=pads)
+    if reset_frequency is not None and step % reset_frequency == 0:
+      prevs = torch.zeros_like(prevs)
+    return lowrank.fd_update_root(
+        stats, exp, compression_rank, prevs, ridge_epsilon=matrix_epsilon,
+        relative_matrix_epsilon=relative_matrix_epsilon, decay=beta2,
+        padding_starts=pads, generate_fd_metrics=generate_fd_metrics)
+
   def _perform_solve(step) -> bool:
     """The root-recompute gate, with the JAX package's decaying interval
     (`preconditioning_compute_steps_schedule`) in f32 when scheduled."""
@@ -579,14 +670,18 @@ def distributed_shampoo(
                               step) -> Dict[str, ParameterStats]:
     """Solve inverse roots for every statistic across all params at once.
 
-    Statistics are gathered into one ``[N, m, m]`` batch per exponent,
-    padded with an identity block to the largest ``d`` of all params.  A
+    Statistics are gathered into one ``[N, m, m]`` batch per (exponent,
+    solver mode), padded to the largest ``d`` of all params: with an
+    identity block for the full and low-rank solvers, and the packed
+    previous roots of the FD solver with zeros to ``[m, |k| + 2]``.  A
     stacked param contributes whole ``[nb, d, d]`` stacks; a legacy
-    param's per-block entries join the same batch, decoded a group of one
-    size at a time, and take their roots back through the failure gate
-    re-encoded (a failed entry keeps its decoded old root).  Metrics come
-    back in the global statistic order: parameter by parameter, axis-major
-    within a stacked param and block-major within a legacy one.
+    param's per-block entries join their batch decoded a group of one size
+    at a time, and take their roots back through the failure gate sliced
+    to ``[:d, :width]``, JAX's slicing, and re-encoded (a failed entry
+    keeps its decoded old root).  Metrics come back in the global
+    statistic order: parameter by parameter, axis-major within a stacked
+    param and block-major within a legacy one; each group's metrics lack
+    the reports of the other modes, which are zero-filled.
     """
     if not _perform_solve(step):
       return states
@@ -604,16 +699,20 @@ def distributed_shampoo(
             k = int(s.shape[0])
             ids.append(len(chunks))
             chunks.append(_SolveChunk(name, (slot,), int(s.shape[-1]), exp,
-                                      tuple(range(stat_index,
-                                                  stat_index + k)), True))
+                                      "full", tuple(range(stat_index,
+                                                          stat_index + k)),
+                                      True))
             stat_index += k
         else:
           by_size: Dict[int, List[int]] = {}
           for j, s in enumerate(state.statistics):
             by_size.setdefault(int(s.shape[0]), []).append(j)
           for d, js in by_size.items():
+            mode = "full"
+            if lowrank.should_compress(compression_rank, d):
+              mode = "fd" if frequent_directions else "lowrank"
             ids.append(len(chunks))
-            chunks.append(_SolveChunk(name, tuple(js), d, exp,
+            chunks.append(_SolveChunk(name, tuple(js), d, exp, mode,
                                       tuple(first + j for j in js), False))
           stat_index += len(state.statistics)
       spans[name] = (first, stat_index - first, ids)
@@ -621,9 +720,10 @@ def distributed_shampoo(
       return states
 
     max_size = max(c.d for c in chunks)
-    groups: Dict[int, List[int]] = {}
+    width = lowrank.precond_dim(compression_rank, max_size)
+    groups: Dict[tuple, List[int]] = {}
     for ci, c in enumerate(chunks):
-      groups.setdefault(c.exp, []).append(ci)
+      groups.setdefault((c.exp, c.mode), []).append(ci)
 
     def chunk_mats(c: _SolveChunk, field: str) -> torch.Tensor:
       mats = getattr(states[c.name], field)
@@ -631,27 +731,38 @@ def distributed_shampoo(
         return mats[c.slots[0]]
       return _matrices_to_float([mats[j] for j in c.slots])
 
+    def pad_packed(bufs: torch.Tensor) -> torch.Tensor:
+      out = bufs.new_zeros((bufs.shape[0], max_size, width))
+      out[:, :bufs.shape[1], :bufs.shape[2]] = bufs
+      return out
+
     fresh = [None] * len(chunks)
     old_roots = {}  # legacy chunk id -> decoded previous roots
     group_metrics, order = [], []
-    for exp, cids in sorted(groups.items()):
+    for (exp, mode), cids in sorted(groups.items()):
       cs = [chunks[ci] for ci in cids]
       grp = torch.cat([shape_utils.pad_square_stack(
           chunk_mats(c, "statistics"), max_size) for c in cs])
       pads = torch.cat([torch.full((c.k,), c.d, dtype=torch.int32,
                                    device=grp.device) for c in cs])
       prevs = None
-      if reuse_preconditioner:
-        # Warm-start from the previous accepted roots; the solver certifies
-        # each warm start and falls back to the cold ladder on its own.
+      # The FD solver needs its previous sketches; with reuse_preconditioner
+      # the full solvers warm-start from the previous accepted roots (and
+      # certify each warm start, falling back to the cold ladder).
+      if mode == "fd" or (mode == "full" and reuse_preconditioner):
         olds = []
         for ci, c in zip(cids, cs):
           olds.append(chunk_mats(c, "preconditioners"))
           if not c.stacked:
             old_roots[ci] = olds[-1]
-        prevs = torch.cat([shape_utils.pad_square_stack(o, max_size)
-                           for o in olds])
-      roots, metrics = _solve_batched(grp, exp, pads, prevs)
+        pad = pad_packed if mode == "fd" else functools.partial(
+            shape_utils.pad_square_stack, max_size=max_size)
+        prevs = torch.cat([pad(o) for o in olds])
+      roots, metrics = _solve_group(mode, exp, grp, pads, prevs, step)
+      if generate_detailed_metrics or generate_fd_metrics:
+        metrics = metrics.fill(RootMetrics.zeros(
+            grp.shape[0], generate_detailed_metrics, generate_fd_metrics,
+            grp.device))
       off = 0
       for ci, c in zip(cids, cs):
         fresh[ci] = roots[off:off + c.k]
@@ -672,7 +783,7 @@ def distributed_shampoo(
       new_pre = list(state.preconditioners)
       for ci in ids:
         c = chunks[ci]
-        fr = fresh[ci][:, :c.d, :c.d]
+        fr = fresh[ci][:, :c.d, :lowrank.precond_dim(compression_rank, c.d)]
         if c.stacked:
           gate = failed[c.indices[0]:c.indices[0] + c.k]
           new_pre[c.slots[0]] = torch.where(
@@ -828,11 +939,10 @@ def state_to_tree(state: ShampooState) -> dict:
   def metrics(m):
     if m is None:
       return None
-    out = {f.name: getattr(m, f.name) for f in dataclasses.fields(m)}
-    diag = m.inverse_pth_root_diagnostics
-    out["inverse_pth_root_diagnostics"] = (
-        None if diag is None else dataclasses.asdict(diag))
-    return out
+    return {f.name: (getattr(m, f.name) if f.name not in pth_root.REPORTS
+                     or getattr(m, f.name) is None
+                     else dataclasses.asdict(getattr(m, f.name)))
+            for f in dataclasses.fields(m)}
 
   return {"count": state.count, "stats": {
       name: {"diagonal_statistics": ps.diagonal_statistics,
@@ -840,6 +950,7 @@ def state_to_tree(state: ShampooState) -> dict:
              "preconditioners": [leaf(p) for p in ps.preconditioners],
              "diagonal_momentum": leaf(ps.diagonal_momentum),
              "momentum": leaf(ps.momentum),
+             "avg_grad": ps.avg_grad,
              "training_metrics": metrics(ps.training_metrics)}
       for name, ps in state.stats.items()}}
 
@@ -859,13 +970,10 @@ def state_from_tree(tree: dict, device=None) -> ShampooState:
   def metrics(m):
     if m is None:
       return None
-    diag = m["inverse_pth_root_diagnostics"]
-    return RootMetrics(
-        **{k: move(v) for k, v in m.items()
-           if k != "inverse_pth_root_diagnostics"},
-        inverse_pth_root_diagnostics=None if diag is None else (
-            diagnostics.InversePthRootDiagnostics(
-                **{k: move(v) for k, v in diag.items()})))
+    return RootMetrics(**{
+        k: (move(v) if k not in pth_root.REPORTS or v is None
+            else pth_root.REPORTS[k](**{f: move(x) for f, x in v.items()}))
+        for k, v in m.items()})
 
   return ShampooState(count=int(tree["count"]), stats={
       name: ParameterStats(
@@ -874,6 +982,7 @@ def state_from_tree(tree: dict, device=None) -> ShampooState:
           preconditioners=[leaf(p) for p in ps["preconditioners"]],
           diagonal_momentum=leaf(ps["diagonal_momentum"]),
           momentum=leaf(ps["momentum"]),
+          avg_grad=move(ps.get("avg_grad")),
           training_metrics=metrics(ps["training_metrics"]))
       for name, ps in tree["stats"].items()})
 
@@ -882,8 +991,11 @@ class DistributedShampoo(torch.optim.Optimizer):
   """`torch.optim.Optimizer` over the functional `distributed_shampoo`.
 
   One parameter group.  ``lr`` is read from the group at every step, so
-  `torch.optim.lr_scheduler` schedulers work; the other keyword arguments
-  are those of `distributed_shampoo`.  Every parameter needs a gradient at
+  `torch.optim.lr_scheduler` schedulers work; the decaying solve interval
+  (``decay_preconditioning_compute_steps``) divides it by the schedule's
+  start, the group's ``initial_lr`` (the ``lr`` at construction when no
+  scheduler set one).  The other keyword arguments are those of
+  `distributed_shampoo`.  Every parameter needs a gradient at
   every step.  The Shampoo state lives in ``self.shampoo_state``;
   `state_dict` carries it under ``"shampoo_state"`` (see `state_to_tree`)
   and `load_state_dict` restores it onto the parameters' device.
@@ -895,8 +1007,17 @@ class DistributedShampoo(torch.optim.Optimizer):
       raise NotImplementedError("DistributedShampoo takes one parameter group")
     self._named = {str(i): p
                    for i, p in enumerate(self.param_groups[0]["params"])}
-    self._transform = distributed_shampoo(
-        learning_rate=lambda step: self.param_groups[0]["lr"], **kwargs)
+
+    def learning_rate(step):
+      # The current step's rate is the group's; any other step the
+      # functional form asks for is step 0, the schedule's start.
+      group = self.param_groups[0]
+      if step == self.shampoo_state.count:
+        return group["lr"]
+      return group.get("initial_lr", lr)
+
+    self._transform = distributed_shampoo(learning_rate=learning_rate,
+                                          **kwargs)
     self.shampoo_state = self._transform.init(
         {n: p.detach() for n, p in self._named.items()})
 

@@ -4,10 +4,10 @@ Both directions go through numpy, so nothing here imports JAX: a JAX tree
 is handed over as the same tree with numpy leaves
 (``jax.tree.map(np.asarray, tree)``).  Nested dicts flatten to the port's
 flat ``{"a/b": tensor}`` dicts in JAX's flattening order (sorted keys).
-Both state layouts travel, as do `QuantizedValue` leaves and the detailed
-metrics' residual report.  JAX's detailed metrics also carry LOBPCG and
-conditioned-root reports, which are all zeros without LOBPCG: the port
-drops them and writes zeros back.
+Both state layouts travel, as do `QuantizedValue` leaves, packed
+low-rank and frequent-directions roots, the FD gradient average and every
+report of the metrics (LOBPCG, the residuals of the root and of the
+deflated problem, FD); a report JAX masks is None in the port.
 """
 
 from __future__ import annotations
@@ -18,15 +18,12 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
-from precondition_tpu_torch.ops.pth_root import RootMetrics
+from precondition_tpu_torch.ops.pth_root import REPORTS, RootMetrics
 from precondition_tpu_torch.optim.shampoo import ParameterStats, ShampooState
-from precondition_tpu_torch.utils.diagnostics import InversePthRootDiagnostics
 from precondition_tpu_torch.utils.quantization import QuantizedValue
 
 _METRIC_FIELDS = ("error", "iterations", "error_ratio", "max_eigenvalue",
                   "retries")
-_DIAG_FIELDS = ("max_diag_error", "avg_diag_error", "max_off_diag_error",
-                "avg_off_diag_error", "p")
 
 
 def _flatten(tree, prefix="") -> List[Tuple[str, Any]]:
@@ -78,33 +75,36 @@ def _leaf_to_numpy(x, like):
   return _numpy(x)
 
 
+def _is_array(x) -> bool:
+  return hasattr(x, "shape")
+
+
+def _report_from_numpy(cls, node, device):
+  """A JAX report as the port's ``cls``, or None for a masked one."""
+  fields = [f.name for f in dataclasses.fields(cls)]
+  if not _is_array(getattr(node, fields[0], None)):
+    return None
+  return cls(**{f: _tensor(getattr(node, f), device) for f in fields})
+
+
 def _metrics_from_numpy(m, device):
   if not hasattr(m, "error"):
     return None
-  diag = getattr(m, "inverse_pth_root_diagnostics", None)
   return RootMetrics(
       **{f: _tensor(getattr(m, f), device) for f in _METRIC_FIELDS},
-      inverse_pth_root_diagnostics=(
-          InversePthRootDiagnostics(**{
-              f: _tensor(getattr(diag, f), device) for f in _DIAG_FIELDS})
-          if hasattr(diag, "p") else None))
+      **{f: _report_from_numpy(cls, getattr(m, f), device)
+         for f, cls in REPORTS.items()})
 
 
 def _metrics_to_numpy(m: RootMetrics, like):
   out = like.replace(**{f: _numpy(getattr(m, f)) for f in _METRIC_FIELDS})
-  diag = m.inverse_pth_root_diagnostics
-  if diag is None:
-    return out
-  zero = lambda t: np.zeros_like(np.asarray(t))
-  fill = lambda node: node.replace(**{
-      f.name: zero(getattr(node, f.name))
-      for f in dataclasses.fields(node)})
-  return out.replace(
-      lobpcg=fill(like.lobpcg),
-      conditioned_inverse_pth_root_diagnostics=fill(
-          like.conditioned_inverse_pth_root_diagnostics),
-      inverse_pth_root_diagnostics=like.inverse_pth_root_diagnostics.replace(
-          **{f: _numpy(getattr(diag, f)) for f in _DIAG_FIELDS}))
+  for f in REPORTS:
+    report = getattr(m, f)
+    if report is not None:
+      out = out.replace(**{f: getattr(like, f).replace(**{
+          g.name: _numpy(getattr(report, g.name))
+          for g in dataclasses.fields(report)})})
+  return out
 
 
 def params_from_numpy(tree, device=None) -> Dict[str, torch.Tensor]:
@@ -129,6 +129,8 @@ def state_from_numpy(state, device=None) -> ShampooState:
                          for p in ps.preconditioners],
         diagonal_momentum=_leaf_from_numpy(ps.diagonal_momentum, device),
         momentum=_leaf_from_numpy(ps.momentum, device),
+        avg_grad=(_tensor(ps.avg_grad, device) if _is_array(ps.avg_grad)
+                  else None),
         training_metrics=_metrics_from_numpy(ps.training_metrics, device))
   return ShampooState(count=int(state.count), stats=stats)
 
@@ -156,6 +158,8 @@ def state_to_numpy(state: ShampooState, like):
         diagonal_momentum=_leaf_to_numpy(ps.diagonal_momentum,
                                          like_ps.diagonal_momentum),
         momentum=_leaf_to_numpy(ps.momentum, like_ps.momentum),
+        avg_grad=(like_ps.avg_grad if ps.avg_grad is None
+                  else _numpy(ps.avg_grad)),
         training_metrics=metrics)
 
   return like._replace(

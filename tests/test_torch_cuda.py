@@ -15,7 +15,9 @@ share (`csrc/resident_gemm.cuh`).  The optimizer's options on the card
 metrics) are held to the same optimizer on the CPU: updates rtol 1e-3 /
 atol 1e-4 * max|x|, 2 * max|x| / 127 in the quantized mode (an int8 code
 may round the other way on one side).  Quantization on the card equals the
-CPU's bit for bit.
+CPU's bit for bit.  The compressed solves on the card (cuSOLVER's SVD and
+eigh) are held to LAPACK on the CPU, their packed roots as operators
+(tolerances in the test).
 """
 
 import pytest
@@ -256,3 +258,42 @@ def test_shampoo_options_on_the_card_match_the_cpu_path(dev, options):
   errors = torch.cat([ps.training_metrics.error
                       for ps in results[str(dev)][2].stats.values()])
   assert float(errors.max()) < 0.1
+
+
+@pytest.mark.parametrize("fd", [False, True], ids=["low-rank", "fd"])
+def test_compressed_roots_on_the_card_match_the_cpu(dev, fd):
+  """`low_rank_root` and two `fd_update_root` steps on the card against
+  the CPU, padded members among them: the packed operators ``U diag(inv)
+  U^T + const (I - U U^T)`` and the scalar columns rtol 1e-3 / atol 1e-4
+  of the largest entry."""
+  from precondition_tpu_torch.ops import lowrank
+  gen = torch.Generator().manual_seed(6)
+  pads = torch.tensor([128, 100, 128, 64], dtype=torch.int32)
+  mask = (torch.arange(128)[None] < pads[:, None]).float()
+  rank = 8
+
+  def operators(buf):
+    u, inv, const, _ = lowrank.low_rank_unpack(buf, rank)
+    return (torch.einsum("nik,nk,njk->nij", u, inv, u) + const[:, None, None]
+            * (torch.eye(128) - u @ u.transpose(1, 2)))
+
+  prev = {d: torch.zeros(4, 128, rank + 2, device=d) for d in ("cpu", "cuda")}
+  for _ in range(2 if fd else 1):
+    g = torch.randn(4, 128, 128, generator=gen) * mask[:, :, None]
+    out = {}
+    for d in ("cpu", "cuda"):
+      if fd:
+        factor = lowrank.frequent_directions_update(g.to(d), 0)
+        out[d], _ = lowrank.fd_update_root(
+            factor, 4, rank, prev[d], decay=0.9,
+            padding_starts=pads.to(d))
+        prev[d] = out[d]
+      else:
+        stats = g.to(d) @ g.to(d).transpose(1, 2) / 128
+        out[d], _ = lowrank.low_rank_root(stats, 4, rank,
+                                          padding_starts=pads.to(d))
+    got, want = out["cuda"].cpu(), out["cpu"]
+    for a, b in ((operators(got), operators(want)),
+                 (got[:, :, rank:], want[:, :, rank:])):
+      torch.testing.assert_close(a, b, rtol=1e-3,
+                                 atol=1e-4 * b.abs().max().item())

@@ -24,6 +24,22 @@ Tolerances and why:
   (both are f32 rounding-level residuals at convergence; 1e-5 * lambda_max
   for eigh, whose error is an absolute residual of A + rI), the residual
   report of the detailed metrics atol 1e-4 (rounding-level too);
+* compressed modes: eigenvectors and singular vectors are defined up to
+  sign, and within a tied eigenvalue up to a rotation, so a packed
+  ``[d, k + 2]`` root is compared as the operator it applies beside its
+  scalar columns (`_packed_operator`), at the roots' tolerance; an
+  FD statistic is a QR factor, defined up to its columns' signs, so
+  ``L L^T`` is compared at the statistics' tolerance; a low-rank member's
+  error is an absolute eigendecomposition residual like eigh's; the FD,
+  LOBPCG and conditioned-residual reports atol 1e-4 of the field's largest
+  value (1e-6 at least, for orthogonality residuals at rounding level),
+  rtol 1e-3 (products of roots that agree to 1e-3), LOBPCG iterations
+  within 1; under LOBPCG the error is that of the re-deflated root against
+  the undeflated problem, rtol 1e-3 and atol 1e-3 as in
+  `tests/test_torch_lobpcg.py`, and the residual reports atol 1e-2: they
+  hold the residuals of roots whose A + rI has a condition number up to
+  1e6 (the relative ridge), where the two sides' f32 rounding, of
+  deflations that agree to 1e-4, reaches 2e-3 (measured);
 * in the quantized mode, one quantization step more: an entry that lies
   near a rounding boundary may take the neighbouring code on one side, so
   momenta and updates get atol 2 max|x| / 127 (two int8 steps of the
@@ -37,6 +53,7 @@ Tolerances and why:
   decoded statistics' own tolerance.
 """
 
+import dataclasses
 import functools
 import io
 import subprocess
@@ -51,7 +68,9 @@ import jax.numpy as jnp
 
 from precondition_tpu.ops.pallas import newton_root as jax_newton_root
 from precondition_tpu.optim import shampoo as jax_shampoo
+from precondition_tpu_torch.ops import lowrank
 from precondition_tpu_torch.ops import pth_root
+from precondition_tpu_torch.ops.kernels import newton_root
 from precondition_tpu_torch.optim import shampoo
 from precondition_tpu_torch.utils import convert
 
@@ -125,8 +144,20 @@ def _assert_update_close(got, ref, path, quantized=False):
                              err_msg=path)
 
 
+def _packed_operator(packed):
+  """``U diag(inv) U^T + const (I - U U^T)`` of a packed ``[d, k + 2]``
+  root beside its scalar columns: what a packed root applies, whatever
+  basis its tied eigenvalues took."""
+  k = packed.shape[1] - 2
+  u, inv, const = packed[:, :k], packed[:k, -2], packed[0, -1]
+  return np.concatenate([(u * inv) @ u.T + const * (np.eye(len(u)) - u @ u.T),
+                         packed[:, k:]], axis=1)
+
+
 def _assert_step_parity(jax_upd, jax_state, port_upd, port_state,
-                        quantized=False, eigh=False):
+                        quantized=False, eigh=False, fd_rank=0, lobpcg=False):
+  """``fd_rank``: the compression rank of the FD mode, whose compressed
+  statistics are QR factors."""
   for path, u in convert._flatten(jax_upd):
     _assert_update_close(port_upd[path].numpy(), u, path, quantized)
   ours = dict(convert._flatten(
@@ -136,6 +167,8 @@ def _assert_step_parity(jax_upd, jax_state, port_upd, port_state,
     got = ours[path]
     for s_o, s_r in zip(got.statistics, ref.statistics, strict=True):
       s_o, s_r = _decoded(s_o), _decoded(s_r)
+      if lowrank.should_compress(fd_rank, s_r.shape[0]):
+        s_o, s_r = s_o @ s_o.T, s_r @ s_r.T
       np.testing.assert_allclose(
           s_o, s_r, rtol=1e-5,
           atol=(1e-4 if quantized else 1e-6) * np.abs(s_r).max(),
@@ -143,10 +176,15 @@ def _assert_step_parity(jax_upd, jax_state, port_upd, port_state,
     for r_o, r_r in zip(got.preconditioners, ref.preconditioners,
                         strict=True):
       r_o, r_r = _decoded(r_o), _decoded(r_r)
+      if r_r.ndim == 2 and r_r.shape[0] != r_r.shape[1]:
+        r_o, r_r = _packed_operator(r_o), _packed_operator(r_r)
       np.testing.assert_allclose(
           r_o, r_r, rtol=1e-2 if quantized else 1e-3,
           atol=(1e-3 if quantized else 1e-5) * np.abs(r_r).max(),
           err_msg=path)
+    if hasattr(ref.avg_grad, "shape"):
+      np.testing.assert_allclose(got.avg_grad, ref.avg_grad, rtol=1e-6,
+                                 err_msg=path)
     np.testing.assert_allclose(got.diagonal_statistics,
                                ref.diagonal_statistics, rtol=1e-5,
                                err_msg=path)
@@ -159,7 +197,10 @@ def _assert_step_parity(jax_upd, jax_state, port_upd, port_state,
     np.testing.assert_allclose(m_o.max_eigenvalue, m_r.max_eigenvalue,
                                rtol=1e-4 if quantized else 1e-5)
     atol = 1e-5 * max(np.abs(m_r.max_eigenvalue).max(), 1.0) if eigh else 1e-6
-    np.testing.assert_allclose(m_o.error, m_r.error, atol=atol)
+    # Under LOBPCG: the tolerance of tests/test_torch_lobpcg.py.
+    np.testing.assert_allclose(m_o.error, m_r.error,
+                               atol=1e-3 if lobpcg else atol,
+                               rtol=1e-3 if lobpcg else 1e-7)
     d_r = getattr(m_r, "inverse_pth_root_diagnostics", None)
     if hasattr(d_r, "p"):
       d_o = m_o.inverse_pth_root_diagnostics
@@ -167,7 +208,22 @@ def _assert_step_parity(jax_upd, jax_state, port_upd, port_state,
       for f in ("max_diag_error", "avg_diag_error", "max_off_diag_error",
                 "avg_off_diag_error"):
         np.testing.assert_allclose(getattr(d_o, f), getattr(d_r, f),
-                                   atol=1e-4, err_msg=f"{path} {f}")
+                                   atol=1e-2 if lobpcg else 1e-4,
+                                   rtol=1e-3 if lobpcg else 1e-7,
+                                   err_msg=f"{path} {f}")
+    for name in ("lobpcg", "conditioned_inverse_pth_root_diagnostics", "fd"):
+      r_r = getattr(m_r, name)
+      if not dataclasses.is_dataclass(r_r):
+        continue
+      r_o = getattr(m_o, name)
+      for f in dataclasses.fields(r_r):
+        want = np.asarray(getattr(r_r, f.name))
+        np.testing.assert_allclose(
+            getattr(r_o, f.name), want, rtol=1e-3,
+            atol=(1 if f.name == "lobpcg_iters"
+                  else max(1e-4 * np.abs(want).max(initial=0.0),
+                           1e-2 if lobpcg else 1e-6)),
+            err_msg=f"{path} {name}.{f.name}")
 
 
 @pytest.mark.usefixtures("jax_kernel_path")
@@ -244,6 +300,94 @@ def test_slice_options_match_jax(case):
                                     False), eigh=hypers.get("eigh", False))
 
 
+# The JAX package's mixed-size FD finding: a statistic smaller than the
+# largest of its tree loses its sketch's eigenvalues, which `fd_update_root`
+# writes to the last k rows of the [max_size, k + 2] batch buffer
+# (precondition_tpu/ops/lowrank.py:66) and the gate slices off to [:d]
+# (precondition_tpu/optim/shampoo.py:1127-1128).  The port keeps it.
+_MIXED = {"a": (8, 8), "b": (16, 16)}
+_MIXED_FD = dict(compression_rank=2, frequent_directions=True, block_size=16,
+                 merge_small_dims_block_size=1)
+_FD = dict(compression_rank=3, frequent_directions=True)
+# Trees without ties.  A negative rank keeps A's smallest eigenvalues,
+# which the first steps' low-rank Gram statistics repeat, and a positive
+# one the largest: a tree whose blocks repeat at most |k| = 4 of the
+# smallest keeps whole eigenspaces, so the kept vectors span one subspace
+# on both sides.  FD needs every compressed block's gradient factor to
+# have rank > k: at rank <= k the (k+1)-th singular value is a rounding
+# residual that one LAPACK build returns as 0 and another as 1e-9, and the
+# tail's inverse root jumps from 0 to 1e4.  Blocks [8, 8], [8, 4], [4, 8]
+# and [4, 4] at block 8 (sizes 4 take full roots) serve both.  LOBPCG
+# needs 5k < 16, with distinct top eigenvalues: blocks [16, 16], [16, 8],
+# [8, 16] and [8, 8] at block 16.
+_LOWRANK = {"w": (16, 24), "r": (12, 20)}
+_LOBPCG = {"w": (32, 48), "r": (24, 40)}
+
+
+@pytest.mark.usefixtures("jax_kernel_path")
+@pytest.mark.parametrize("case", [
+    dict(shapes=_LOWRANK, hypers=dict(compression_rank=4, **_UNMERGED)),
+    dict(shapes=_LOWRANK, hypers=dict(compression_rank=-4, **_UNMERGED)),
+    dict(shapes=_LOWRANK, hypers=dict(**_FD, **_UNMERGED)),
+    dict(steps=6, shapes=_LOWRANK, hypers=dict(
+        **_FD, reset_preconditioner=True, beta2=0.75, **_UNMERGED)),
+    dict(steps=4, shapes=_LOWRANK, hypers=dict(
+        **_FD, average_grad=True, statistics_compute_steps=2, **_UNMERGED)),
+    dict(shapes=_LOWRANK, hypers=dict(**_FD, generate_fd_metrics=True,
+                                      generate_detailed_metrics=True,
+                                      **_UNMERGED)),
+    dict(shapes=_LOBPCG, hypers=dict(
+        lobpcg_topk_precondition=2, generate_detailed_metrics=True,
+        block_size=16, best_effort_shape_interpretation=False)),
+    dict(shapes=_LOBPCG, hypers=dict(
+        lobpcg_topk_precondition=2, lobpcg_max_iter=10, block_size=16,
+        best_effort_shape_interpretation=False)),
+    dict(shapes=_LOWRANK, hypers=dict(compression_rank=4,
+                                      best_effort_memory_usage_reduction=True,
+                                      **_UNMERGED)),
+    dict(shapes=_MIXED, hypers=_MIXED_FD),
+], ids=["low-rank", "low-rank-negative", "fd", "fd-reset-every-4",
+        "fd-average-grad-stats-every2", "fd-metrics-detailed", "lobpcg",
+        "lobpcg-ten-iterations",
+        "quantized-low-rank", "fd-mixed-sizes"])
+def test_compressed_modes_match_jax(case):
+  """Three updates (six for the reset, whose beta2 = 0.75 zeroes the FD
+  roots at step 4; four for the average over two steps), on the trees
+  without ties above."""
+  hypers = {"graft_type": shampoo.GraftingType.RMSPROP, **case["hypers"]}
+  fd_rank = (hypers["compression_rank"]
+             if hypers.get("frequent_directions") else 0)
+  for step in _run_both(case.get("steps", 3), seed=4,
+                        shapes=case.get("shapes", _SHAPES), **hypers):
+    _assert_step_parity(
+        *step, quantized=hypers.get("best_effort_memory_usage_reduction",
+                                    False),
+        eigh=bool(hypers.get("compression_rank")) and not fd_rank,
+        fd_rank=fd_rank, lobpcg=bool(hypers.get("lobpcg_topk_precondition")))
+
+
+def _fd_deflated_rows(shapes):
+  """The deflated-eigenvalue rows of the (8, 8) param's packed roots after
+  two FD steps of the port alone."""
+  opt = shampoo.distributed_shampoo(learning_rate=0.1,
+                                    start_preconditioning_step=1, **_MIXED_FD)
+  gen = torch.Generator().manual_seed(0)
+  params = {n: torch.randn(s, generator=gen) for n, s in shapes.items()}
+  state = opt.init(params)
+  for _ in range(2):
+    _, state = opt.update({n: torch.randn(s, generator=gen)
+                           for n, s in shapes.items()}, state, params)
+  return torch.stack([b[-2:, -1] for b in state.stats["a"].preconditioners])
+
+
+def test_fd_mixed_sizes_keep_the_jax_finding():
+  """Alone, the (8, 8) param keeps its sketch's eigenvalues in the last
+  rows of its packed roots; beside a (16, 16) param they are lost, as in
+  the JAX package (see _MIXED)."""
+  assert bool((_fd_deflated_rows({"a": (8, 8)}) > 0).all())
+  assert bool((_fd_deflated_rows(_MIXED) == 0).all())
+
+
 def test_decay_schedule_skips_the_solve():
   """The schedule's skipped step keeps the roots and the metrics."""
   opt = shampoo.distributed_shampoo(
@@ -262,15 +406,100 @@ def test_decay_schedule_skips_the_solve():
   assert seen == [False, False, False, True]
 
 
+def test_wrapper_decay_schedule_divides_by_the_initial_lr():
+  """`DistributedShampoo` under a `LambdaLR` schedule stretches the solve
+  interval as the functional form does: the roots stay at step 3."""
+  gen = torch.Generator().manual_seed(0)
+  w = torch.nn.Parameter(torch.ones(8, 8))
+  opt = shampoo.DistributedShampoo(
+      [w], lr=0.1, block_size=8, decay_preconditioning_compute_steps=True,
+      end_preconditioning_compute_steps=13, start_preconditioning_step=0)
+  sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda s: 1.0 / (1.0 + s))
+  seen = []
+  for _ in range(4):
+    before = opt.shampoo_state.stats["0"].preconditioners[0]
+    w.grad = torch.randn(8, 8, generator=gen)
+    opt.step()
+    sched.step()
+    seen.append(opt.shampoo_state.stats["0"].preconditioners[0] is before)
+  assert seen == [False, False, False, True]
+
+
+def test_statistic_above_the_kernels_limit_takes_the_batched_solver(
+    monkeypatch):
+  """A batch larger than `newton_root.MAX_M` (here patched to 8) is solved
+  by `pth_root.batched_inverse_pth_root`, as "xla" solves it, where the
+  kernel would refuse it."""
+  monkeypatch.setattr(newton_root, "MAX_M", 8)
+  gen = torch.Generator().manual_seed(0)
+  params = {"w": torch.randn(11, 4, generator=gen)}
+  grads = [{"w": torch.randn(11, 4, generator=gen)} for _ in range(2)]
+  out = {}
+  for backend in ("auto", "xla"):
+    opt = shampoo.distributed_shampoo(learning_rate=0.1, block_size=16,
+                                      start_preconditioning_step=0,
+                                      best_effort_shape_interpretation=False,
+                                      solver_backend=backend)
+    state = opt.init(params)
+    for g in grads:
+      upd, state = opt.update(g, state, params)
+    out[backend] = (upd["w"], state.stats["w"].preconditioners)
+  torch.testing.assert_close(out["auto"][0], out["xla"][0], rtol=0, atol=0)
+  assert float(state.stats["w"].training_metrics.error.max()) < 0.1
+
+
 @pytest.mark.parametrize("option", [
     dict(batch_axis_name="batch"), dict(shard_optimizer_states=True),
-    dict(compression_rank=4), dict(frequent_directions=True),
-    dict(generate_fd_metrics=True), dict(lobpcg_topk_precondition=2),
     dict(num_devices_for_pjit=2), dict(precision="highest"),
 ])
 def test_unported_options_raise(option):
   with pytest.raises(NotImplementedError, match="ROADMAP.md"):
     shampoo.distributed_shampoo(learning_rate=0.1, **option)
+
+
+@pytest.mark.parametrize("option", [
+    dict(compression_rank=4), dict(frequent_directions=True),
+    dict(generate_fd_metrics=True), dict(lobpcg_topk_precondition=2),
+    dict(compression_rank=-2, frequent_directions=True),
+    dict(reset_preconditioner=True),
+    dict(compression_rank=2, frequent_directions=True,
+         delayed_preconditioning=True),
+    dict(compression_rank=2, frequent_directions=True,
+         reset_preconditioner=True, average_grad=True,
+         generate_fd_metrics=True),
+    dict(compression_rank=2, frequent_directions=True,
+         generate_fd_metrics=True, generate_training_metrics=False),
+    dict(average_grad=True),
+], ids=["compression", "fd-without-rank", "fd-metrics-without-fd", "lobpcg",
+        "fd-negative-rank", "reset-without-fd", "fd-delayed",
+        "fd-reset-average-metrics", "fd-metrics-without-metrics",
+        "average-grad-without-fd"])
+def test_option_validation_matches_jax(option):
+  """The port raises the `ValueError`s JAX raises on the same options, and
+  where JAX accepts them (silently dropping `generate_fd_metrics` without
+  FD or training metrics, and `average_grad` without FD) builds a state of
+  the same structure: the same reports, the same gradient average."""
+  try:
+    jax_opt = jax_shampoo.distributed_shampoo(learning_rate=0.1, **option)
+  except ValueError:
+    with pytest.raises(ValueError):
+      shampoo.distributed_shampoo(learning_rate=0.1, **option)
+    return
+  opt = shampoo.distributed_shampoo(learning_rate=0.1, **option)
+  shapes = {"w": (8, 6)}
+  ref = convert.state_from_numpy(jax.tree.map(np.asarray, jax_opt.init(
+      _tree(lambda s: jnp.ones(s, jnp.float32), shapes))))
+  ours = opt.init({"w": torch.ones(8, 6)})
+  ps_r, ps_o = ref.stats["w"], ours.stats["w"]
+  assert (ps_o.avg_grad is None) == (ps_r.avg_grad is None)
+  assert (ps_o.training_metrics is None) == (ps_r.training_metrics is None)
+  if ps_r.training_metrics is not None:
+    for name in ("lobpcg", "inverse_pth_root_diagnostics",
+                 "conditioned_inverse_pth_root_diagnostics", "fd"):
+      assert ((getattr(ps_o.training_metrics, name) is None)
+              == (getattr(ps_r.training_metrics, name) is None)), name
+  assert ([tuple(p.shape) for p in ps_o.preconditioners]
+          == [tuple(p.shape) for p in ps_r.preconditioners])
 
 
 @pytest.mark.parametrize("shape,block_size,best_effort", [
@@ -362,7 +591,9 @@ def test_larger_fixture_golden(kwargs):
 @pytest.mark.parametrize("kwargs", [
     dict(), dict(best_effort_memory_usage_reduction=True),
     dict(reuse_preconditioner=True, generate_detailed_metrics=True),
-], ids=["default", "quantized", "warm-detailed"])
+    dict(compression_rank=3, frequent_directions=True, average_grad=True,
+         generate_fd_metrics=True, statistics_compute_steps=2),
+], ids=["default", "quantized", "warm-detailed", "fd-average-metrics"])
 def test_state_dict_resumes_bit_for_bit(kwargs):
   """`DistributedShampoo.state_dict()` through `torch.save` and a
   `weights_only` load: the resumed optimizer continues bit for bit, as
@@ -439,7 +670,9 @@ def test_state_round_trip():
     dict(best_effort_memory_usage_reduction=True,
          generate_detailed_metrics=True),
     dict(generate_detailed_metrics=True, **_UNMERGED),
-], ids=["quantized-detailed", "ragged-detailed"])
+    dict(**_FD, average_grad=True, generate_fd_metrics=True,
+         generate_detailed_metrics=True, **_UNMERGED),
+], ids=["quantized-detailed", "ragged-detailed", "fd-average-metrics"])
 def test_legacy_state_round_trip(hypers):
   """Legacy lists, `QuantizedValue` leaves and the residual report go to
   the JAX structure and back unchanged, and JAX steps on the result."""
@@ -494,6 +727,8 @@ def test_port_never_imports_jax():
           "precondition_tpu_torch.utils.quantization, "
           "precondition_tpu_torch.utils.diagnostics, "
           "precondition_tpu_torch.ops.pth_root, "
+          "precondition_tpu_torch.ops.lowrank, "
+          "precondition_tpu_torch.ops.lobpcg, "
           "precondition_tpu_torch.ops.kernels.newton_root, "
           "precondition_tpu_torch.ops.kernels.matmul_chain, "
           "precondition_tpu_torch.probes.tile_breakdown, "

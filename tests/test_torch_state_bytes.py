@@ -7,7 +7,9 @@ built on the ``meta`` device (shapes and dtypes, no memory) and the JAX
 state by `jax.eval_shape`.  The byte counts must agree within 0.1%.  The
 one difference is the step count: JAX keeps an int32 array (4 bytes), the
 port a Python int (no tensor bytes).  The JAX probe counted 1514.2 MB in
-f32 and 770.0 MB quantized (`STEP_BREAKDOWN_TPU.json`, shape-derived).
+f32 and 770.0 MB quantized (`STEP_BREAKDOWN_TPU.json`, shape-derived);
+with frequent directions at rank 32 every root of the 6,176 blocks of 128
+is a packed [128, 34] buffer, 1217.0 MB by `jax.eval_shape` here.
 """
 
 import jax
@@ -43,10 +45,9 @@ def _flat(tree, prefix=""):
   return out
 
 
-def _port_bytes(quantized):
+def _port_bytes(options):
   opt = shampoo.distributed_shampoo(
-      **_HYPERS, graft_type=shampoo.GraftingType.RMSPROP,
-      best_effort_memory_usage_reduction=quantized)
+      **_HYPERS, graft_type=shampoo.GraftingType.RMSPROP, **options)
   state = opt.init({n: torch.empty(s, device="meta")
                     for n, s in _flat(_shapes()).items()})
   return sum(t.numel() * t.element_size()
@@ -64,10 +65,9 @@ def _tensors(tree):
       yield from _tensors(value)
 
 
-def _jax_bytes(quantized):
+def _jax_bytes(options):
   opt = jax_shampoo.distributed_shampoo(
-      **_HYPERS, graft_type=jax_shampoo.GraftingType.RMSPROP,
-      best_effort_memory_usage_reduction=quantized)
+      **_HYPERS, graft_type=jax_shampoo.GraftingType.RMSPROP, **options)
   params = jax.tree.map(lambda s: jax.ShapeDtypeStruct(s, jnp.float32),
                         _shapes(), is_leaf=lambda x: isinstance(x, tuple))
   shapes = jax.eval_shape(opt.init, params)
@@ -75,11 +75,13 @@ def _jax_bytes(quantized):
              for x in jax.tree.leaves(shapes))
 
 
-@pytest.mark.parametrize("quantized,jax_probe_mb", [(False, 1514.2),
-                                                    (True, 770.0)],
-                         ids=["f32", "quantized"])
-def test_state_bytes_match_jax_at_full_size(quantized, jax_probe_mb):
-  ours, ref = _port_bytes(quantized), _jax_bytes(quantized)
+@pytest.mark.parametrize("options,jax_probe_mb", [
+    (dict(), 1514.2),
+    (dict(best_effort_memory_usage_reduction=True), 770.0),
+    (dict(compression_rank=32, frequent_directions=True), 1217.0),
+], ids=["f32", "quantized", "fd-rank-32"])
+def test_state_bytes_match_jax_at_full_size(options, jax_probe_mb):
+  ours, ref = _port_bytes(options), _jax_bytes(options)
   assert ref - ours == 4  # the int32 step count
   assert abs(ours - ref) <= 1e-3 * ref
   assert round(ref / 1e6, 1) == jax_probe_mb
