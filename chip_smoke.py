@@ -35,15 +35,32 @@ Phases, each of which raises on failure:
       Frobenius of (c)'s, the state's bytes within 0.1% of the JAX
       package's shape count; step times, peak memory and the host cost of
       decoding and encoding the per-block state;
-  (c3) Sketchy: three updates of the same fixture with frequent_directions
+  (c3) Sketchy: two updates of the same fixture with frequent_directions
       and compression_rank=32 (every block of 128 compresses): no Newton
       launch, every FD error 0, state bytes within 0.1% of the JAX count,
       64 sampled members of the last step's solve re-solved on the host
       and compared as operators; step times, peak memory, one profiled
       step; then the compressed solves' library calls timed (QR, the SVD's
       drivers, eigh);
-  (c4) the same with low-rank roots (compression_rank=32 alone), three
+  (c4) the same with low-rank roots (compression_rank=32 alone), two
       updates, every root accepted by the failure gate;
+  (g) SM3 on the same fixture, 5 updates: finite, state bytes within 0.1%
+      of the JAX count, step times and peak memory; and the card against
+      the CPU path on a small tree;
+  (h) tearfree blocked Shampoo on the same fixture with the JAX package's
+      benchmarks/tearfree_backend_trajectory.py options at block 128, roots
+      every step from step 0: "filtered" (what "auto" picks on the card) 5
+      updates and "newton" 5, each launching the Newton kernel 32 times a
+      step (one per param and axis), and "eigh" 2; 64 sampled blocks of the
+      last solves held to float64 on the host (Newton roots to their true
+      residual, filtered roots to an eigh root with the 1e-6 clip); state
+      bytes against the JAX count; step times and peak memory; one more
+      filtered and one more newton step under torch.profiler (host ms of
+      the statistics, roots and preconditioning scopes, kernel ms); and
+      every backend and Sketchy on the card against the CPU path on a
+      small tree;
+  (i) tearfree Sketchy at rank 128 on the same fixture, 2 updates: finite,
+      state bytes against the JAX count, step times and peak memory;
   (d) `DistributedShampoo` training a width-1024 least-squares model;
   (e) the tile-breakdown probe (precondition_tpu_torch.probes.tile_breakdown)
       at the JAX script's [712,128,128] p=4 and at the main path's
@@ -55,6 +72,7 @@ before it the kernels' JSON record, and the last line
 """
 
 import concurrent.futures
+import dataclasses
 import gc
 import json
 import math
@@ -72,7 +90,14 @@ from precondition_tpu_torch.ops.kernels import _build
 from precondition_tpu_torch.ops.kernels import matmul_chain
 from precondition_tpu_torch.ops.kernels import newton_root
 from precondition_tpu_torch.optim import shampoo
+from precondition_tpu_torch.optim import sm3
 from precondition_tpu_torch.probes import tile_breakdown
+from precondition_tpu_torch.tearfree import grafting as tf_grafting
+from precondition_tpu_torch.tearfree import momentum as tf_momentum
+from precondition_tpu_torch.tearfree import optimizer as tf_optimizer
+from precondition_tpu_torch.tearfree import second_order as tf_second_order
+from precondition_tpu_torch.tearfree import shampoo as tf_shampoo
+from precondition_tpu_torch.tearfree import sketchy as tf_sketchy
 from precondition_tpu_torch.utils.quantization import QuantizedValue
 
 KERNELS = ("newton_root", "matmul_chain")
@@ -519,19 +544,20 @@ def small_tree_check(device):
 
 
 def state_bytes(state):
-  """Bytes of the optimizer state's tensors: sum of numel * element_size."""
-  tree = shampoo.state_to_tree(state)
-
-  def walk(x):
-    if isinstance(x, torch.Tensor):
-      return x.numel() * x.element_size()
-    if isinstance(x, dict):
-      return sum(walk(v) for v in x.values())
-    if isinstance(x, list):
-      return sum(walk(v) for v in x)
-    return 0
-
-  return walk(tree)
+  """Bytes of the tensors in an optimizer state of dataclasses, dicts,
+  lists and tuples: sum of numel * element_size."""
+  if isinstance(state, torch.Tensor):
+    return state.numel() * state.element_size()
+  if isinstance(state, QuantizedValue):
+    return sum(state_bytes(t) for t in state.tensors())
+  if isinstance(state, dict):
+    return sum(state_bytes(v) for v in state.values())
+  if isinstance(state, (list, tuple)):
+    return sum(state_bytes(v) for v in state)
+  if dataclasses.is_dataclass(state):
+    return sum(state_bytes(getattr(state, f.name))
+               for f in dataclasses.fields(state))
+  return 0
 
 
 def bench_fixture(device, **tree):
@@ -546,39 +572,65 @@ def bench_fixture(device, **tree):
   return params, grads
 
 
-def run_steps(label, opt, params, grads, steps, reference=None,
-              launches_per_step=2):
-  """Initializes the state, resets the peak-memory counter and runs
-  ``steps`` updates with the roots every step; checks the Newton kernel's
-  launches (``launches_per_step`` a step), the updates and the failure
-  gate, and with ``reference`` (a list of each step's updates on the
-  host) each step's relative Frobenius difference from it.  Returns a
-  dict: the updates on the host, step seconds, the state before the last
-  step and after it, the max rel diff, the max root error, the bytes held
-  before the steps and the peak bytes."""
-  state = opt.init(params)
+def timed_steps(label, tx, params, grads, steps, launches_per_step,
+                on_step=None):
+  """Initializes ``tx``'s state, resets the peak-memory counter and runs
+  ``steps`` updates of the bench fixture, host clock around each, with the
+  kernels' counts set to 0 just before the first; checks the Newton
+  kernel's launches (``launches_per_step`` a step), finite updates, which
+  it adds to ``params``, and no launch of the matmul chain, and calls
+  ``on_step(step, updates, state)`` after each.  Returns a dict: step
+  seconds and their median after step 1, the state before the last step
+  and after it, the launches, the bytes held before the steps and the
+  peak bytes."""
+  state = tx.init(params)
   torch.cuda.synchronize()
   base = torch.cuda.memory_allocated()
   torch.cuda.reset_peak_memory_stats()
-  times, kept, rel_worst = [], [], 0.0
+  times = []
   newton_root.LAUNCHES = matmul_chain.LAUNCHES = 0
   for step in range(steps):
     g = grads()
     before = state
     torch.cuda.synchronize()
     start = time.perf_counter()
-    updates, state = opt.update(g, state, params)
+    updates, state = tx.update(g, state, params)
     torch.cuda.synchronize()
     times.append(time.perf_counter() - start)
-    launches = newton_root.LAUNCHES
     want = launches_per_step * (step + 1)
-    check(launches == want,
-          f"{label} step {step}: {launches} kernel launches, expected {want}")
+    check(newton_root.LAUNCHES == want,
+          f"{label} step {step}: {newton_root.LAUNCHES} kernel launches, "
+          f"expected {want}")
     for n, u in updates.items():
       check(u.shape == params[n].shape and bool(torch.isfinite(u).all()),
             f"{label} step {step}: update of {n} is not finite or has a "
             "wrong shape")
       params[n] += u
+    if on_step is not None:
+      on_step(step, updates, state)
+  check(matmul_chain.LAUNCHES == 0,
+        f"{label}: the matmul chain ran on the optimizer's path")
+  peak = torch.cuda.max_memory_allocated()
+  median_ms = 1e3 * float(np.median(times[1:] if steps > 1 else times))
+  log(f"  {label}, {steps} steps: Newton launches {newton_root.LAUNCHES}; "
+      f"step times {[round(1e3 * t, 3) for t in times]} ms; median after "
+      f"step 1 {median_ms:.3f} ms; peak memory {peak / 2**30:.3f} GiB, of "
+      f"which {base / 2**30:.3f} GiB were held before the steps")
+  return dict(times=times, step_ms=median_ms, before=before, state=state,
+              launches=newton_root.LAUNCHES, base=base, peak=peak)
+
+
+def run_steps(label, opt, params, grads, steps, reference=None,
+              launches_per_step=2):
+  """`timed_steps` of a `distributed_shampoo` with the roots every step,
+  which also checks the failure gate after each step and, with
+  ``reference`` (a list of each step's updates on the host), each step's
+  relative Frobenius difference from it.  Adds to `timed_steps`' dict the
+  updates on the host (without ``reference``), the max rel diff and the
+  max root error."""
+  kept, rel_worst = [], [0.0]
+
+  def on_step(step, updates, state):
     errors = torch.cat([ps.training_metrics.error
                         for ps in state.stats.values()])
     check(not bool(torch.isnan(errors).any())
@@ -593,14 +645,16 @@ def run_steps(label, opt, params, grads, steps, reference=None,
       rel = math.sqrt(num / den)
       check(rel < 0.1, f"{label} step {step}: update differs from the f32 "
             f"run's by {rel:.3e} (relative Frobenius)")
-      rel_worst = max(rel_worst, rel)
+      rel_worst[0] = max(rel_worst[0], rel)
     else:
       kept.append(host)
-  check(matmul_chain.LAUNCHES == 0,
-        f"{label}: the matmul chain ran on the optimizer's path")
-  return dict(updates=kept, times=times, before=before, state=state,
-              rel=rel_worst, max_error=errors.max().item(), base=base,
-              peak=torch.cuda.max_memory_allocated())
+
+  run = timed_steps(label, opt, params, grads, steps, launches_per_step,
+                    on_step)
+  errors = torch.cat([ps.training_metrics.error
+                      for ps in run["state"].stats.values()])
+  return dict(run, updates=kept, rel=rel_worst[0],
+              max_error=errors.max().item())
 
 
 def phase_main_path(device, steps=5, **tree):
@@ -639,15 +693,27 @@ def phase_main_path(device, steps=5, **tree):
 # STEP_BREAKDOWN_TPU.json): f32 and memory-reduced, without training
 # metrics.  The port's must agree within 0.1%.
 JAX_STATE_BYTES = {"f32": 1514.2e6, "quantized": 770.0e6}
+# `jax.eval_shape` of the JAX package's SM3 and tearfree inits on the bench
+# tree, with (h)'s and (i)'s options (tests/test_torch_sm3.py and
+# tests/test_torch_tearfree_chain.py hold these to JAX and the port's
+# counts to them); JAX keeps each step count as an int32, the port as a
+# Python int.
+JAX_SM3_STATE_BYTES = 59_191_316
+JAX_TEARFREE_SHAMPOO_STATE_BYTES = 1_275_101_192
+JAX_TEARFREE_SKETCHY_STATE_BYTES = 503_382_280
 
 
 SCOPES = ("ShampooStatistics", "ShampooRootSolve", "ShampooPrecondition")
+# Tearfree Shampoo's profiler scopes: statistics, roots, preconditioning.
+TEARFREE_SCOPES = ("ShampooStats", "PthInvRoot", "PreconditionShampoo")
 
 
-def profile_step(opt, state, params, grads, trace_device=True):
+def profile_step(opt, state, params, grads, trace_device=True,
+                 scopes=SCOPES):
   """One more update under `torch.profiler`: the host ms of each of the
-  optimizer's three scopes, the kernels' device ms in all (None without
-  ``trace_device``), and the step's wall ms (inflated by the profiler)."""
+  optimizer's ``scopes``, the kernels' device ms in all and the five
+  largest by name (None and absent without ``trace_device``), and the
+  step's wall ms (inflated by the profiler)."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
   g = grads()
@@ -663,12 +729,17 @@ def profile_step(opt, state, params, grads, trace_device=True):
   events = prof.key_averages()
   out = {"wall_ms": 1e3 * wall}
   for e in events:
-    if e.key in SCOPES and e.device_type == DeviceType.CPU:
+    if e.key in scopes and e.device_type == DeviceType.CPU:
       out[f"{e.key}_host_ms"] = e.cpu_time_total / 1e3
   # Device events other than the scopes' own spans: kernels, copies, sets.
-  out["kernels_ms"] = sum(e.self_device_time_total for e in events
-                          if e.device_type == DeviceType.CUDA
-                          and e.key not in SCOPES) / 1e3 if trace_device else None
+  device = [e for e in events
+            if e.device_type == DeviceType.CUDA and e.key not in scopes]
+  out["kernels_ms"] = (sum(e.self_device_time_total for e in device) / 1e3
+                       if trace_device else None)
+  if trace_device:
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:5]
+    out["top_kernels_ms"] = {e.key[:60]: e.self_device_time_total / 1e3
+                             for e in top}
   return out
 
 
@@ -930,6 +1001,235 @@ def f1_check(device):
       f"{errors.tolist()}")
 
 
+def card_against_cpu(label, make_tx, device, shapes, quantized=False,
+                     steps=3):
+  """The transformation ``make_tx()`` on the card and on the CPU from the
+  same small inputs: the summed updates of ``steps`` steps must agree
+  (rtol 1e-3, atol 1e-4 * max|x|; two int8 steps of the scale with an
+  int8 momentum, where a code may round the other way on one side).
+  Returns the card's Newton-kernel launches."""
+  gen = torch.Generator().manual_seed(1)
+  params = {n: 0.1 * torch.randn(s, generator=gen) for n, s in shapes.items()}
+  grads = [{n: 0.1 * torch.randn(s, generator=gen) for n, s in shapes.items()}
+           for _ in range(steps)]
+  total = {}
+  for dev in ("cpu", device):
+    tx = make_tx()
+    p = {n: x.to(dev) for n, x in params.items()}
+    state = tx.init(p)
+    launches = newton_root.LAUNCHES
+    acc = {n: torch.zeros_like(x) for n, x in p.items()}
+    for g in grads:
+      upd, state = tx.update({n: x.to(dev) for n, x in g.items()}, state, p)
+      for n in p:
+        acc[n] += upd[n]
+        p[n] = p[n] + upd[n]
+    total[dev] = {n: x.cpu() for n, x in acc.items()}
+    launches = newton_root.LAUNCHES - launches
+  worst = 0.0
+  for n in shapes:
+    got, ref = total[device][n], total["cpu"][n]
+    scale = ref.abs().max()
+    worst = max(worst, (got - ref).abs().max().item())
+    check(bool(torch.isfinite(got).all())
+          and torch.allclose(got, ref, rtol=1e-3,
+                             atol=2 * scale / 127 if quantized
+                             else 1e-4 * scale),
+          f"{label}: card and CPU disagree on {n} by up to {worst}")
+  log(f"  {label}, {steps} updates: card against CPU max |diff| "
+      f"{worst:.3e}, {launches} kernel launches on the card")
+  return launches
+
+
+def check_state_bytes(label, state, want, counts):
+  """The state's tensor bytes against the JAX package's shape count
+  ``want``, which holds ``counts`` int32 step counts the port keeps as
+  Python ints: within 0.1%."""
+  nbytes = state_bytes(state)
+  check(abs(nbytes + 4 * counts - want) <= 1e-3 * want,
+        f"{label}: state {nbytes} B differs from the JAX count {want} B by "
+        "more than 0.1%")
+  log(f"  {label}: state {nbytes} B; JAX count {want} B ({counts} int32 "
+      "step counts more)")
+  return nbytes
+
+
+SM3_HYPERS = dict(learning_rate=0.1, beta1=0.9, beta2=0.999)
+# A small tree for the card against the CPU: a norm vector, blocks [64, 128]
+# (one statistic rank-deficient with a clean gap, at p = 4 on the Newton
+# kernel's resident path) and a 3-D block [32, 64, 128] (full rank, p = 6
+# on its global path; no two of its dims merge at tearfree's merge_dims
+# of 1024).  No square block: the eigenvalues of a square Gaussian block
+# can fall at the 1e-6 clip, which the eigh and filtered backends then
+# decide by rounding.
+SMALL_TEARFREE_TREE = {"w": (64, 256), "t": (32, 64, 128), "b": (256,)}
+# Kernel launches of the small tree a step: two axes of "w", three of "t".
+SMALL_TEARFREE_LAUNCHES = 5
+
+
+def phase_sm3(device, steps=5, **tree):
+  log("(g) SM3 on the bench fixture")
+  card_against_cpu("SM3 small tree", lambda: sm3.sm3(**SM3_HYPERS), device,
+                   SMALL_TEARFREE_TREE, quantized=True)
+  params, grads = bench_fixture(device, **tree)
+  run = timed_steps("(g) SM3", sm3.sm3(**SM3_HYPERS), params, grads, steps,
+                    launches_per_step=0)
+  nbytes = check_state_bytes("(g) SM3", run["state"], JAX_SM3_STATE_BYTES,
+                             counts=1)
+  return dict(step_times_ms=[1e3 * t for t in run["times"]],
+              step_ms=run["step_ms"], peak_bytes=run["peak"],
+              base_bytes=run["base"], state_bytes=nbytes)
+
+
+def tearfree_options(backend="filtered", sketch=False, rank=128):
+  """The JAX package's benchmarks/tearfree_backend_trajectory.py:89-107
+  options (RMSProp grafting at decay 0.999, statistics decay 0.999,
+  momentum 0.9) at the bench block, 128, with roots every step from step
+  0; Sketchy at ``rank``, by default the Options' 128."""
+  if sketch:
+    so = tf_second_order.Options(
+        second_order_type=tf_second_order.SecondOrderType.SKETCHY,
+        shampoo_options=None, sketchy_options=tf_sketchy.Options(rank=rank))
+  else:
+    so = tf_second_order.Options(
+        second_order_type=tf_second_order.SecondOrderType.SHAMPOO,
+        shampoo_options=tf_shampoo.Options(
+            block_size=128, update_preconditioners_freq=1,
+            second_moment_decay=0.999, solver_backend=backend))
+  return tf_optimizer.TearfreeOptions(
+      grafting_options=tf_grafting.Options(
+          grafting_type=tf_grafting.GraftingType.RMSPROP,
+          second_moment_decay=0.999, start_preconditioning_step=0),
+      second_order_options=so,
+      momentum_options=tf_momentum.Options(momentum_decay=0.9))
+
+
+# Kernel launches of a tearfree Shampoo step on the bench tree at block
+# 128: one per preconditioned (param, axis), 4 layers x 4 matrices x 2.
+TEARFREE_LAUNCHES = 32
+
+
+def sampled_blocks(state):
+  """SAMPLED (statistic, root) pairs spread evenly over the last solve's
+  blocks: ``([n, 128, 128] stats, [n, 128, 128] roots)`` on the card."""
+  blocks = state[0].direction.blocks
+  picks = [(name, axis, j) for name, b in blocks.items()
+           for axis, s in enumerate(b.stats) for j in range(s.shape[0])]
+  picks = [picks[i] for i in np.linspace(0, len(picks) - 1,
+                                         SAMPLED).astype(int)]
+  take = lambda field: torch.stack(
+      [getattr(blocks[n], field)[a][j] for n, a, j in picks])
+  return take("stats"), take("roots")
+
+
+def check_newton_roots(stats, roots, p=4):
+  """Roots of the ``newton`` backend against their float64 true residual,
+  at the ridge the kernel solved: the sampled statistics solved again by
+  the kernel with the backend's own lambda_max give the ridge and ladder
+  round (relaunched after the run's count was read)."""
+  pads = torch.full((stats.shape[0],), stats.shape[-1], dtype=torch.int32,
+                    device=stats.device)
+  again, metrics = newton_root.batched_inverse_pth_root_cuda(
+      stats, p, pads, max_evs=tf_shampoo._batched_max_evs(stats, pads))
+  resid, bound = residual_check(stats, pads, p, metrics, relative=True)(
+      roots)
+  worst = (resid / bound).max().item()
+  diff = (again - roots).abs().max().item()
+  log(f"  newton: {SAMPLED} sampled roots, f64 true residual max "
+      f"{resid.max().item():.3e} (max resid/bound {worst:.3e}); "
+      f"max |root - root solved again| {diff:.3e}")
+  check(worst < 1.0, "newton: a sampled root's true residual is over its "
+        "bound")
+  return dict(residual_max=resid.max().item(), resid_over_bound=worst)
+
+
+def check_filtered_roots(stats, roots, p=4):
+  """Roots of the ``filtered`` backend against a float64 eigh root of the
+  same statistics with the 1e-6 relative clip, on the host: max-abs within
+  0.05 of the largest root entry (the JAX suite's bound,
+  tests/test_tearfree.py:178-180)."""
+  w, v = torch.linalg.eigh(stats.double().cpu())
+  mask = w <= 1e-6 * w.amax(dim=-1, keepdim=True)
+  inv = torch.where(mask, 0.0, torch.where(mask, 1.0, w) ** (-1.0 / p))
+  want = (v * inv[:, None, :]) @ v.transpose(1, 2)
+  err = ((roots.double().cpu() - want).abs().amax(dim=(1, 2))
+         / want.abs().amax(dim=(1, 2)))
+  log(f"  filtered: {SAMPLED} sampled roots against a float64 eigh root "
+      f"with the clip, max |diff| / max |root| {err.max().item():.3e}")
+  check(err.max().item() < 0.05,
+        "filtered: a sampled root is off the eigh root by more than 0.05")
+  return dict(rel_max_abs_diff=err.max().item())
+
+
+def phase_tearfree(device, **tree):
+  """(h): tearfree blocked Shampoo on the bench fixture; returns each
+  backend's record."""
+  log("(h) tearfree Shampoo on the bench fixture")
+  for backend in ("filtered", "newton", "eigh"):
+    launches = card_against_cpu(
+        f"tearfree {backend} small tree",
+        lambda: tf_optimizer.tearfree(0.1, tearfree_options(backend)),
+        device, SMALL_TEARFREE_TREE)
+    want = 0 if backend == "eigh" else 3 * SMALL_TEARFREE_LAUNCHES
+    check(launches == want, f"tearfree {backend} small tree: {launches} "
+          f"kernel launches on the card, expected {want}")
+  # Rank 16: at the default 128 the first gradient of "w"'s 256-long axis
+  # has rank 64 <= k, and the sketch keeps rounding-level singular values
+  # whose basis and inverse roots each LAPACK build picks its own way
+  # (PERF.md §6, "Ties"); the bench tree's axes have rank 1,024 or more.
+  card_against_cpu(
+      "tearfree Sketchy small tree",
+      lambda: tf_optimizer.tearfree(0.1, tearfree_options(sketch=True,
+                                                          rank=16)),
+      device, SMALL_TEARFREE_TREE)
+  check(tf_shampoo.resolve_solver("auto", device) == "filtered",
+        "tearfree's auto does not resolve to filtered on the card")
+  out = {}
+  for backend, steps in (("filtered", 5), ("newton", 5), ("eigh", 2)):
+    params, grads = bench_fixture(device, **tree)
+    tx = tf_optimizer.tearfree(0.1, tearfree_options(backend))
+    run = timed_steps(f"(h) {backend}", tx, params, grads, steps,
+                      0 if backend == "eigh" else TEARFREE_LAUNCHES)
+    state = run["state"]
+    blocks = state[0].direction.blocks
+    precond = sum(state_bytes(b) for b in blocks.values())
+    nbytes = check_state_bytes(f"(h) {backend}", state,
+                               JAX_TEARFREE_SHAMPOO_STATE_BYTES, counts=2)
+    record = dict(step_times_ms=[1e3 * t for t in run["times"]],
+                  step_ms=run["step_ms"], peak_bytes=run["peak"],
+                  base_bytes=run["base"], state_bytes=nbytes,
+                  stats_and_roots_bytes=precond, launches=run["launches"],
+                  blocks=sum(s.shape[0] for b in blocks.values()
+                             for s in b.stats))
+    if backend != "eigh":
+      stats, roots = sampled_blocks(state)
+      check_roots = (check_newton_roots if backend == "newton"
+                     else check_filtered_roots)
+      record.update(check_roots(stats, roots))
+      record["profiled_step"] = profile_step(tx, state, params, grads,
+                                             scopes=TEARFREE_SCOPES)
+      log(f"  one more {backend} step under torch.profiler: "
+          f"{json.dumps(record['profiled_step'])}")
+    out[backend] = record
+    del state, blocks, run, params
+    gc.collect()
+    torch.cuda.empty_cache()
+  return out
+
+
+def phase_tearfree_sketchy(device, steps=2, **tree):
+  log("(i) tearfree Sketchy at rank 128 on the bench fixture")
+  params, grads = bench_fixture(device, **tree)
+  tx = tf_optimizer.tearfree(0.1, tearfree_options(sketch=True))
+  run = timed_steps("(i) Sketchy", tx, params, grads, steps,
+                    launches_per_step=0)
+  nbytes = check_state_bytes("(i) Sketchy", run["state"],
+                             JAX_TEARFREE_SKETCHY_STATE_BYTES, counts=2)
+  return dict(step_times_ms=[1e3 * t for t in run["times"]],
+              step_ms=run["step_ms"], peak_bytes=run["peak"],
+              base_bytes=run["base"], state_bytes=nbytes)
+
+
 def phase_trainer(device, width=1024, rows=4096, steps=20):
   log("(d) DistributedShampoo on least squares")
   gen = torch.Generator(device=device).manual_seed(2)
@@ -991,12 +1291,15 @@ def main():
   del f32_updates
   log("(c3) Sketchy: frequent_directions with compression_rank=32 on the "
       "bench fixture")
-  # An FD step's SVD takes seconds (PERF.md), so 3 steps; FD needs 2,
-  # the second reading the first's sketch.
-  sketchy = phase_compressed("(c3)", device, 3, frequent_directions=True)
+  # An FD step's SVD takes seconds (PERF.md), so 2 steps, the second
+  # reading the first's sketch.
+  sketchy = phase_compressed("(c3)", device, 2, frequent_directions=True)
   sketchy["library_ms"] = linalg_timings(device)
   log("(c4) low-rank roots: compression_rank=32 on the bench fixture")
-  low_rank = phase_compressed("(c4)", device, 3, frequent_directions=False)
+  low_rank = phase_compressed("(c4)", device, 2, frequent_directions=False)
+  sm3_run = phase_sm3(device)
+  tearfree_runs = phase_tearfree(device)
+  tearfree_runs["sketchy"] = phase_tearfree_sketchy(device)
   phase_trainer(device)
   probe_launches = phase_probe()
   log("(f) card")
@@ -1012,19 +1315,23 @@ def main():
   log(json.dumps({"main_path": {"build_s": build_s, **main_path},
                   "memory_reduced": reduced,
                   "sketchy_fd": sketchy, "low_rank": low_rank,
+                  "sm3": sm3_run, "tearfree": tearfree_runs,
                   "newton_root_timings": timings,
                   "per_matrix_solvers": solvers,
                   "matmul_chain_timing": chain}))
   log(json.dumps({"kernels": [{
       "name": "newton_root", "route": "cuda", "source": SOURCES["newton_root"],
       "replaces": REPLACES["newton_root"],
-      "launches": main_path["launches"] + reduced["launches"],
+      "launches": (main_path["launches"] + reduced["launches"]
+                   + tearfree_runs["filtered"]["launches"]
+                   + tearfree_runs["newton"]["launches"]),
       "max_abs_err": max_err, "ms": main["ms"], "plain_ms": main["plain_ms"],
       "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
       # No single PyTorch call computes a batched inverse p-th root.
       "library_ms": None, "path": main["path"],
       "driven_by": "distributed_shampoo, 5 steps; the same with "
-                   "best_effort_memory_usage_reduction, 5 steps"}, {
+                   "best_effort_memory_usage_reduction, 5 steps; tearfree "
+                   "filtered and newton, 5 steps each"}, {
       "name": "matmul_chain", "route": "cuda",
       "source": SOURCES["matmul_chain"],
       "replaces": REPLACES["matmul_chain"],

@@ -4,8 +4,10 @@ Runs the Shampoo optimizer's main path (the default, single-device mode
 with stacked statistics) on an NVIDIA Hopper GPU, with the coupled-Newton
 inverse-root solve as a hand-written CUDA kernel built from
 ``csrc/newton_root.cu`` at first use.  On the CPU every kernel's plain
-PyTorch twin runs instead.  This package imports torch and never JAX; the
-JAX package beside it is the reference its tests compare against.
+PyTorch twin runs instead.  SM3 (`optim/sm3.py`) and the tearfree stack
+(`tearfree/`, whose Newton and filtered roots take the same kernel) are
+here too.  This package imports torch and never JAX; the JAX package
+beside it is the reference its tests compare against.
 """
 
 __version__ = "0.1.0"
@@ -16,3 +18,5 @@ from precondition_tpu_torch.optim.shampoo import (
     PreconditionerType,
     distributed_shampoo,
 )
+from precondition_tpu_torch.optim.sm3 import sm3
+from precondition_tpu_torch.tearfree import TearfreeOptions, tearfree

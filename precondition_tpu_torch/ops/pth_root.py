@@ -6,8 +6,9 @@ batched power iteration, `pth_root_difference`, and two batched solvers of
 ``(A + eps I)^{-1/p}`` over a ``[N, m, m]`` stack,
 `batched_inverse_pth_root` (the JAX package's per-matrix coupled Newton,
 `matrix_inverse_pth_root` under `vmap`, with its LOBPCG deflation) and its
-``eigh=True`` form.  The Newton-root kernel and its twin live in
-`ops/kernels/newton_root.py`.
+``eigh=True`` form; and the matmul-only spectral projector
+`batched_spectral_projector` of tearfree's filtered roots.  The
+Newton-root kernel and its twin live in `ops/kernels/newton_root.py`.
 """
 
 from __future__ import annotations
@@ -248,6 +249,48 @@ def power_iteration(
   v = v / torch.clamp(torch.linalg.vector_norm(v, dim=1, keepdim=True),
                       min=_EPSILON)
   return v, ev
+
+
+def batched_spectral_projector(stats: torch.Tensor, thresholds: torch.Tensor,
+                               num_iters: int = 30) -> torch.Tensor:
+  """Smooth spectral projector ``P ~= 1{eig(A) > threshold}``, batched.
+
+  The JAX package's `batched_spectral_projector`: on ``B_0 = (A - t I) /
+  s`` (spectrum in [-1, 1]) iterate the Newton-Schulz quintic for the
+  matrix sign function, ``f(x) = (15 x - 10 x^3 + 3 x^5) / 8``, which maps
+  [-1, 1] into itself monotonically with slope 15/8 at 0; then ``P = (I +
+  sign(A - t I)) / 2``.  An eigenvalue at relative distance ``delta`` from
+  the threshold resolves after ``log(1/delta) / log(15/8)`` iterations.
+
+  The scale ``s`` is a guaranteed upper bound of lambda_max, ``min(||A||_F,
+  ||A||_inf)``, never an estimate: the quintic diverges for |x| above about
+  1.3, so a low estimate (a loose power iteration on a covariance with
+  lambda_max << 1) is fatal, while a high bound costs only a few more
+  iterations.  Each iteration is three batched products in true f32.
+
+  Args:
+    stats: ``[N, d, d]`` symmetric batch.
+    thresholds: ``[N]`` absolute eigenvalue cutoffs (e.g. ``eps * λmax``).
+    num_iters: sign-iteration count.
+
+  Returns:
+    ``[N, d, d]`` symmetric projector batch with eigenvalues in [0, 1].
+  """
+  require_true_f32()
+  eye = torch.eye(stats.shape[-1], dtype=stats.dtype, device=stats.device)
+  fro = torch.sqrt(torch.sum(torch.square(stats), dim=(1, 2)))
+  infn = torch.amax(torch.sum(torch.abs(stats), dim=2), dim=1)
+  bound = torch.minimum(fro, infn)
+  # The shifted matrix's extremes are lambda_max - t (above) and -t
+  # (below); bound >= lambda_max >= both magnitudes for t >= 0, and the
+  # threshold term keeps the negative end in basin even if t > bound.
+  scale = torch.clamp(torch.maximum(bound, thresholds), min=_EPSILON)
+  b = (stats - thresholds[:, None, None] * eye) / scale[:, None, None]
+  for _ in range(num_iters):
+    c = torch.bmm(b, b)
+    c2 = torch.bmm(c, c)
+    b = torch.bmm(b, 1.875 * eye - 1.25 * c + 0.375 * c2)
+  return 0.5 * (b + eye)
 
 
 def _rowmax_abs(x: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Moves parameters and Shampoo state between the JAX package and the port.
+"""Moves parameters and optimizer state between the JAX package and the port.
 
 Both directions go through numpy, so nothing here imports JAX: a JAX tree
 is handed over as the same tree with numpy leaves
@@ -7,7 +7,10 @@ flat ``{"a/b": tensor}`` dicts in JAX's flattening order (sorted keys).
 Both state layouts travel, as do `QuantizedValue` leaves, packed
 low-rank and frequent-directions roots, the FD gradient average and every
 report of the metrics (LOBPCG, the residuals of the root and of the
-deflated problem, FD); a report JAX masks is None in the port.
+deflated problem, FD); a report JAX masks is None in the port.  SM3 and
+tearfree states travel too (`sm3_state_from_numpy`,
+`tearfree_state_from_numpy` and their inverses), so that a run can start
+in JAX and continue in the port.
 """
 
 from __future__ import annotations
@@ -19,7 +22,12 @@ import numpy as np
 import torch
 
 from precondition_tpu_torch.ops.pth_root import REPORTS, RootMetrics
+from precondition_tpu_torch.optim import sm3
 from precondition_tpu_torch.optim.shampoo import ParameterStats, ShampooState
+from precondition_tpu_torch.tearfree import grafting as tf_grafting
+from precondition_tpu_torch.tearfree import momentum as tf_momentum
+from precondition_tpu_torch.tearfree import shampoo as tf_shampoo
+from precondition_tpu_torch.tearfree import sketchy as tf_sketchy
 from precondition_tpu_torch.utils.quantization import QuantizedValue
 
 _METRIC_FIELDS = ("error", "iterations", "error_ratio", "max_eigenvalue",
@@ -165,3 +173,175 @@ def state_to_numpy(state: ShampooState, like):
   return like._replace(
       count=np.asarray(state.count, dtype=np.asarray(like.count).dtype),
       stats=_map_like(like.stats, convert))
+
+
+def sm3_state_from_numpy(state, device=None) -> sm3.SM3State:
+  """A JAX `SM3State` with numpy leaves as the port's state."""
+  return sm3.SM3State(count=int(state.count), stats={
+      path: sm3.ParameterStats(
+          [_tensor(a, device) for a in ps.diagonal_statistics],
+          _leaf_from_numpy(ps.diagonal_momentum, device))
+      for path, ps in _flatten(state.stats)})
+
+
+def sm3_state_to_numpy(state: sm3.SM3State, like):
+  """The port's SM3 state in the structure of a JAX `SM3State` ``like``."""
+  def convert(path, like_ps):
+    ps = state.stats[path]
+    return like_ps._replace(
+        diagonal_statistics=[_numpy(a) for a in ps.diagonal_statistics],
+        diagonal_momentum=_leaf_to_numpy(ps.diagonal_momentum,
+                                         like_ps.diagonal_momentum))
+
+  return like._replace(
+      count=np.asarray(state.count, dtype=np.asarray(like.count).dtype),
+      stats=_map_like(like.stats, convert))
+
+
+# The tearfree state.  JAX's chain is (grafting, momentum chain, lr):
+# grafting is `GraftingState(count, direction, norm)` (or the direction
+# alone without grafting), the direction the second-order chain
+# (MaskedNode, Shampoo or Sketchy state, MaskedNode), whose trees hold an
+# empty `_GraftMask` node for each param left out of preconditioning, and
+# optax states elsewhere: the `TraceState` among the momentum chain's,
+# Adafactor's `FactoredState` first in its chains, the lr schedule's
+# count.  The port keeps the chain's tuple and, inside it, only the states
+# that hold values (`tearfree.optimizer`).
+
+def _count(x, like):
+  return np.asarray(x, dtype=np.asarray(like).dtype)
+
+
+def _tearfree_precond_from_numpy(pre, device):
+  if hasattr(pre, "blocks"):
+    return tf_shampoo.ShampooState(int(pre.count), {
+        path: tf_shampoo.AxesBlocks([_tensor(s, device) for s in b.stats],
+                                    [_tensor(r, device) for r in b.roots])
+        for path, b in _flatten(pre.blocks) if hasattr(b, "stats")})
+  fields = [f.name for f in dataclasses.fields(tf_sketchy.AxisState)]
+  return tf_sketchy.SketchyState(int(pre.count), {
+      path: tf_sketchy.TensorState([tf_sketchy.AxisState(**{
+          f: _tensor(getattr(a, f), device) if _is_array(getattr(a, f))
+          else None for f in fields}) for a in t.axes])
+      for path, t in _flatten(pre.sketches) if hasattr(t, "axes")})
+
+
+def _tearfree_precond_to_numpy(pre, like):
+  if hasattr(like, "blocks"):
+    def blocks(path, lk):
+      b = pre.blocks.get(path)
+      if b is None:
+        return lk
+      return lk._replace(stats=[_numpy(s) for s in b.stats],
+                         roots=[_numpy(r) for r in b.roots])
+    return like._replace(count=_count(pre.count, like.count),
+                         blocks=_map_like(like.blocks, blocks))
+
+  def sketches(path, lk):
+    t = pre.sketches.get(path)
+    if t is None:
+      return lk
+    return lk._replace(axes=[la._replace(**{
+        f.name: _numpy(getattr(a, f.name)) for f in dataclasses.fields(a)
+        if getattr(a, f.name) is not None}) for a, la in zip(t.axes, lk.axes)])
+  return like._replace(count=_count(pre.count, like.count),
+                       sketches=_map_like(like.sketches, sketches))
+
+
+def _factored_from_numpy(fs, device):
+  """optax's `FactoredState` as the port's; a param whose ``v_row`` and
+  ``v_col`` are both the ``[1]`` placeholders is unfactored."""
+  v_row, v_col, v = {}, {}, {}
+  for (path, r), (_, c), (_, full) in zip(
+      _flatten(fs.v_row), _flatten(fs.v_col), _flatten(fs.v)):
+    factored = not (np.shape(r) == (1,) and np.shape(c) == (1,))
+    v_row[path] = _tensor(r, device) if factored else None
+    v_col[path] = _tensor(c, device) if factored else None
+    v[path] = None if factored else _tensor(full, device)
+  return tf_grafting.FactoredState(int(fs.count), v_row, v_col, v)
+
+
+def _has_field(node, name) -> bool:
+  """Whether a JAX state node is a NamedTuple with field ``name`` (a plain
+  ``hasattr`` also finds tuple methods such as ``count``)."""
+  return name in getattr(node, "_fields", ())
+
+
+def _factored_node(node):
+  """The `FactoredState` at the head of Adafactor's nested chains, or
+  None."""
+  while isinstance(node, tuple) and not _has_field(node, "v_row"):
+    node = node[0] if node else None
+  return node
+
+
+def tearfree_state_from_numpy(state, device=None):
+  """A JAX tearfree state with numpy leaves as the port's state."""
+  graft, mom, lr = state
+
+  def direction(node):
+    return _tearfree_precond_from_numpy(node[1], device)
+
+  if hasattr(graft, "norm"):
+    norm = graft.norm
+    if hasattr(norm, "acc"):
+      norm = tf_grafting.RMSPropAccumulator(params_from_numpy(norm.acc,
+                                                              device))
+    elif _factored_node(norm) is not None:
+      norm = _factored_from_numpy(_factored_node(norm), device)
+    else:
+      norm = None
+    graft = tf_grafting.GraftingState(int(graft.count),
+                                      direction(graft.direction), norm)
+  else:
+    graft = direction(graft)
+  traces = [s for s in mom if hasattr(s, "trace")]
+  mom = (tf_momentum.TraceState(params_from_numpy(traces[0].trace, device))
+         if traces else None)
+  lr = int(lr.count) if _has_field(lr, "count") else None
+  return graft, mom, lr
+
+
+def _replace_first(node, new):
+  """``node`` with the `FactoredState` at the head of its chains replaced."""
+  if _has_field(node, "v_row"):
+    return new
+  return (_replace_first(node[0], new),) + tuple(node[1:])
+
+
+def tearfree_state_to_numpy(state, like):
+  """The port's tearfree state in the structure of a JAX state ``like``."""
+  graft, mom, lr = state
+  like_graft, like_mom, like_lr = like
+
+  def direction(pre, lk):
+    return (lk[0], _tearfree_precond_to_numpy(pre, lk[1]), lk[2])
+
+  def tree(values, lk):
+    return _map_like(lk, lambda path, leaf: _numpy(values[path]))
+
+  if hasattr(like_graft, "norm"):
+    norm, like_norm = graft.norm, like_graft.norm
+    if isinstance(norm, tf_grafting.RMSPropAccumulator):
+      like_norm = like_norm._replace(acc=tree(norm.acc, like_norm.acc))
+    elif isinstance(norm, tf_grafting.FactoredState):
+      fs = _factored_node(like_norm)
+      keep = lambda values, lk: _map_like(
+          lk, lambda path, leaf: leaf if values[path] is None
+          else _numpy(values[path]))
+      new = fs._replace(count=_count(norm.count, fs.count),
+                        v_row=keep(norm.v_row, fs.v_row),
+                        v_col=keep(norm.v_col, fs.v_col),
+                        v=keep(norm.v, fs.v))
+      like_norm = _replace_first(like_norm, new)
+    like_graft = like_graft._replace(
+        count=_count(graft.count, like_graft.count),
+        direction=direction(graft.direction, like_graft.direction),
+        norm=like_norm)
+  else:
+    like_graft = direction(graft, like_graft)
+  like_mom = tuple(s._replace(trace=tree(mom.trace, s.trace))
+                   if hasattr(s, "trace") else s for s in like_mom)
+  if lr is not None:
+    like_lr = like_lr._replace(count=_count(lr, like_lr.count))
+  return like_graft, like_mom, like_lr
