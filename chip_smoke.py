@@ -39,9 +39,10 @@ Phases, each of which raises on failure:
       and compression_rank=32 (every block of 128 compresses): no Newton
       launch, every FD error 0, state bytes within 0.1% of the JAX count,
       64 sampled members of the last step's solve re-solved on the host
-      and compared as operators; step times, peak memory, one profiled
-      step; then the compressed solves' library calls timed (QR, the SVD's
-      drivers, eigh);
+      and compared as operators; step times and peak memory (no profiled
+      step: parsing its host events took most of the phase); then the
+      compressed solves' library calls timed (QR, each of cuSOLVER's SVD
+      algorithms, eigh);
   (c4) the same with low-rank roots (compression_rank=32 alone), two
       updates, every root accepted by the failure gate;
   (g) SM3 on the same fixture, 5 updates: finite, state bytes within 0.1%
@@ -65,9 +66,21 @@ Phases, each of which raises on failure:
   (e) the tile-breakdown probe (precondition_tpu_torch.probes.tile_breakdown)
       at the JAX script's [712,128,128] p=4 and at the main path's
       [6144,128,128] p=4, each JSON on its own line, counting launches;
+  (j) distribution on the one card, ranks spawned after (a) built the
+      kernels (`parallel.local.run_local_ranks`), which load the built
+      libraries: (j1) `batch_axis_name` over 2 gloo ranks, 3 steps on the
+      bench fixture, each rank launching the Newton kernel on its half of
+      each exponent group (16 and 3,072 members), every root accepted,
+      updates and roots against a one-process run of the same fixture;
+      the same over 1 NCCL rank, 3 steps; (j2) `shard_optimizer_states`
+      over a mesh of 2 gloo ranks, 3 steps: each rank's statistics and
+      roots half of JAX's global 809,500,672 B, updates and gathered roots
+      against a one-rank sharded run; step times per rank, and the peak
+      memory of each rank's updates beside the bytes it held before them;
   (f) the card's name, power limit and TF32 setting.
-The line before the last is nvidia-smi's name and power limit, a line
-before it the kernels' JSON record, and the last line
+Each phase's seconds are printed on a line of their own ("phase (x) took
+N s").  The line before the last is nvidia-smi's name and power limit, a
+line before it the kernels' JSON record, and the last line
 {"ok": true, "device": {...}}.
 """
 
@@ -83,6 +96,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from precondition_tpu_torch.ops import lowrank
 from precondition_tpu_torch.ops import pth_root
@@ -91,6 +105,8 @@ from precondition_tpu_torch.ops.kernels import matmul_chain
 from precondition_tpu_torch.ops.kernels import newton_root
 from precondition_tpu_torch.optim import shampoo
 from precondition_tpu_torch.optim import sm3
+from precondition_tpu_torch.parallel import local
+from precondition_tpu_torch.parallel import mesh
 from precondition_tpu_torch.probes import tile_breakdown
 from precondition_tpu_torch.tearfree import grafting as tf_grafting
 from precondition_tpu_torch.tearfree import momentum as tf_momentum
@@ -701,6 +717,13 @@ JAX_STATE_BYTES = {"f32": 1514.2e6, "quantized": 770.0e6}
 JAX_SM3_STATE_BYTES = 59_191_316
 JAX_TEARFREE_SHAMPOO_STATE_BYTES = 1_275_101_192
 JAX_TEARFREE_SKETCHY_STATE_BYTES = 503_382_280
+# The JAX package's memory-sharded state on the bench tree with (j2)'s
+# options, by its `shape_and_dtype_fn` (tests/test_torch_sharded.py holds
+# both to it): the global statistics and roots, [6176, 128, 128] f32 each,
+# and the whole state with the exponents, the replicated per-parameter
+# stats and the int32 step count.
+JAX_SHARDED_ROOT_BYTES = 809_500_672
+JAX_SHARDED_STATE_BYTES = 1_514_341_124
 
 
 SCOPES = ("ShampooStatistics", "ShampooRootSolve", "ShampooPrecondition")
@@ -907,9 +930,10 @@ def phase_compressed(label, device, steps, frequent_directions, **tree):
   median_ms = 1e3 * float(np.median(times[1:]))
   log(f"  {steps} steps: step times {[round(1e3 * t, 3) for t in times]} ms")
   resolved = host_resolve(label, run, params, solve)
-  # Host scopes only: tracing the device over cuSOLVER's per-matrix
-  # launches (thousands a step) outlasted a 20-minute call on the card.
-  profiled = profile_step(opt, state, params, grads, trace_device=False)
+  # No profiled step: under the profiler cuSOLVER's per-matrix loop leaves
+  # over a million host events a step, whose parsing took most of these
+  # phases' time (PERF.md), and tracing the device outlasted a 20-minute
+  # call.
   log(f"  {steps} steps: Newton launches {newton_root.LAUNCHES}; step times "
       f"{[round(1e3 * t, 3) for t in times]} ms; median after step 1 "
       f"{median_ms:.3f} ms; peak memory {run['peak'] / 2**30:.3f} GiB, of "
@@ -917,11 +941,10 @@ def phase_compressed(label, device, steps, frequent_directions, **tree):
       f"state {nbytes} B ({metric_bytes} B of training metrics; JAX count "
       f"{JAX_COMPRESSED_STATE_BYTES} B without them); max root error "
       f"{run['max_error']:.3e}")
-  log(f"  one more step under torch.profiler: {json.dumps(profiled)}")
   return dict(step_times_ms=[1e3 * t for t in times], step_ms=median_ms,
               peak_bytes=run["peak"], base_bytes=run["base"],
               state_bytes=nbytes, metric_bytes=metric_bytes,
-              max_error=run["max_error"], profiled_step=profiled, **resolved)
+              max_error=run["max_error"], **resolved)
 
 
 def linalg_timings(device):
@@ -1277,61 +1300,382 @@ def phase_probe(fixtures=(712, 6144)):
   return launches
 
 
+# Phase (j): distribution on the one card.  Ranks are spawned processes
+# joined by gloo (NCCL refuses two ranks on one device); the kernels are
+# built by the parent first, and the ranks load the built libraries.
+DIST_RANKS = 2
+DIST_STEPS = 3
+# Timed all-gathers of one rank's half of (j1)'s roots.
+GATHER_REPS = 3
+# A gloo collective on the bench tree moves up to 809.5 MB through the
+# host; the group's timeout bounds each one.
+DIST_TIMEOUT_S = 300.0
+
+
+def _recorded_newton_sizes():
+  """Each Newton solve call's batch size from here on, in this process
+  (instrumentation of the call, not a launch count)."""
+  sizes = []
+  solve = newton_root.batched_inverse_pth_root
+
+  def recorded(stats, *args, **kwargs):
+    sizes.append(int(stats.shape[0]))
+    return solve(stats, *args, **kwargs)
+  newton_root.batched_inverse_pth_root = recorded
+  return sizes
+
+
+def _expected_split(exponents, world):
+  """Members of each exponent group's solve on each rank: every group
+  padded to a multiple of ``world`` and split into ``world`` slices."""
+  counts = {}
+  for p in exponents:
+    counts[p] = counts.get(p, 0) + 1
+  return [-(-counts[p] // world) for p in sorted(counts)]
+
+
+def _runs_of(exponents):
+  """Lengths of the runs of equal exponents (the sharded layout's groups
+  within a rank's rows); a padding slot (exponent 1) joins the run before
+  it, as it joins the last group."""
+  runs, last = [], None
+  for p in exponents:
+    if runs and p in (last, 1):
+      runs[-1] += 1
+    else:
+      runs.append(1)
+      last = p
+  return runs
+
+
+def _worst(pairs):
+  """Largest |a - b| over ``(a, b)`` tensor pairs (``a`` moved to ``b``'s
+  device), and whether every entry is within ATOL + RTOL |b|."""
+  worst, ok = 0.0, True
+  for a, b in pairs:
+    diff = (a.to(b.device) - b).abs()
+    worst = max(worst, float(diff.max()))
+    ok = ok and bool((diff <= ATOL + RTOL * b.abs()).all())
+  return worst, ok
+
+
+def _timed_dist_steps(label, opt, init, params, grads, after_step):
+  """``DIST_STEPS`` updates from ``init() -> (state, expected Newton batch
+  sizes a step)``, built here so that no caller holds the first state
+  over the steps, with the kernels' counts set to 0 just before the
+  first; host clock around each, ending in a synchronize.  Checks each
+  step's Newton calls' batch sizes, its launches, finite updates;
+  ``after_step(updates, state)`` and a barrier of the ranks run outside
+  the clock and outside the peak, which is the largest of the updates'
+  own peaks.  Returns a dict: step ms, launches, the expected sizes, the
+  final state, the bytes held before the steps and the peak bytes."""
+  state, expected = init()
+  torch.cuda.synchronize()
+  base = torch.cuda.memory_allocated()
+  sizes = _recorded_newton_sizes()
+  times, peak = [], 0
+  newton_root.LAUNCHES = matmul_chain.LAUNCHES = 0
+  for step in range(DIST_STEPS):
+    g = grads()
+    sizes.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    updates, state = opt.update(g, state, params)
+    torch.cuda.synchronize()
+    times.append(1e3 * (time.perf_counter() - start))
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    check(sizes == expected, f"{label} step {step}: Newton batches {sizes}, "
+          f"expected {expected}")
+    check(newton_root.LAUNCHES == len(expected) * (step + 1),
+          f"{label} step {step}: {newton_root.LAUNCHES} Newton launches")
+    for n, u in updates.items():
+      check(bool(torch.isfinite(u).all()),
+            f"{label} step {step}: update of {n} is not finite")
+    after_step(updates, state)
+    # The ranks start each step together: a rank's clock must not hold the
+    # wait for another's work outside its own clock.
+    dist.barrier()
+  check(matmul_chain.LAUNCHES == 0, f"{label}: the matmul chain ran")
+  return dict(step_ms=times, launches=newton_root.LAUNCHES,
+              members=expected, state=state, base_bytes=base,
+              peak_bytes=peak)
+
+
+def _to_host(updates, roots):
+  """A step's updates and roots copied to the host, so that keeping them
+  for the comparison adds nothing to the card's memory."""
+  return ({n: u.cpu() for n, u in updates.items()}, [r.cpu() for r in roots])
+
+
+def _single_run(opt, init, kept):
+  """The comparison run on rank 0: ``DIST_STEPS`` updates of ``opt`` from
+  ``init(params)`` on the same fixture, each step's updates and roots
+  (``roots(state)``) against ``kept``.  Returns its step ms and the
+  worst differences."""
+  params, grads = bench_fixture(torch.device("cuda"))
+  state, times, diffs = init(params), [], []
+  for step in range(DIST_STEPS):
+    g = grads()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    u, state = opt.update(g, state, params)
+    torch.cuda.synchronize()
+    times.append(1e3 * (time.perf_counter() - start))
+    got_u, got_r = kept[step]
+    diffs.append((_worst((got_u[n], u[n]) for n in u),
+                  _worst(zip(got_r, _roots(state)))))
+  return dict(single_step_ms=times,
+              max_update_diff=max(d[0][0] for d in diffs),
+              max_root_diff=max(d[1][0] for d in diffs),
+              within_tolerance=all(d[0][1] and d[1][1] for d in diffs))
+
+
+def _roots(state):
+  """Every root of a state, in its order: the global rows of a sharded
+  state, else each param's stacks."""
+  if isinstance(state.stats, dict):
+    return [r for ps in state.stats.values() for r in ps.preconditioners]
+  return [state.stats.global_stats.preconditioners]
+
+
+def _check_accepted(label, metrics):
+  errors = torch.cat([m.error for m in metrics if m is not None])
+  check(not bool(torch.isnan(errors).any()) and errors.max().item() < 0.1,
+        f"{label}: the failure gate rejected roots (max error "
+        f"{errors.max().item()})")
+
+
+def dist_batch_axis_rank(rank, world):
+  """(j1) on one rank: `distributed_shampoo(**HYPERS, batch_axis_name=
+  "batch")` on the bench fixture, roots every step, each rank solving its
+  slice of each exponent group.  Rank 0 then runs the one-process
+  optimizer on the same fixture and holds every step's updates and roots
+  to it."""
+  device = torch.device("cuda")
+  pth_root.require_true_f32()
+  params, grads = bench_fixture(device)
+  opt = shampoo.distributed_shampoo(**HYPERS, batch_axis_name="batch")
+
+  def init():
+    state = opt.init(params)
+    exponents = [2 * len(ps.statistics) for ps in state.stats.values()
+                 for s in ps.statistics for _ in range(s.shape[0])]
+    return state, _expected_split(exponents, world)
+
+  kept = []
+
+  def keep(updates, state):
+    _check_accepted("(j1)", [ps.training_metrics
+                             for ps in state.stats.values()])
+    if rank == 0:
+      kept.append(_to_host(updates, _roots(state)))
+
+  run = _timed_dist_steps(f"(j1) rank {rank}", opt, init, params, grads,
+                          keep)
+  state = run.pop("state")
+  out = dict(run, rank=rank, world=world, backend=dist.get_backend())
+  # The all-gather of this rank's half of the p = 4 roots alone.
+  shards = mesh.process_group_shards(None)
+  half = _roots(state)[-1].new_zeros((run["members"][-1],) + tuple(
+      _roots(state)[-1].shape[1:]))
+  del state
+  gather_ms = []
+  for _ in range(GATHER_REPS):
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    mesh.all_gather_rows(half, shards)
+    torch.cuda.synchronize()
+    gather_ms.append(1e3 * (time.perf_counter() - start))
+  out["gather_ms"] = gather_ms
+  del half
+  if rank == 0:
+    single = shampoo.distributed_shampoo(**HYPERS)
+    out.update(_single_run(single, single.init, kept))
+  kept.clear()
+  dist.barrier()
+  return out
+
+
+def dist_sharded_rank(rank, world):
+  """(j2) on one rank: `shard_optimizer_states` with both specs over a
+  mesh of the ranks and `num_devices_for_pjit=world`: the rank holds its
+  rows of the global statistics and roots.  Rank 0 then runs a one-rank
+  sharded run (no mesh: every row on one rank) and holds each step's
+  updates and the gathered roots to it."""
+  device = torch.device("cuda")
+  pth_root.require_true_f32()
+  spec = mesh.sharding(mesh.make_mesh((world,), ("d",)), "d")
+  options = dict(HYPERS, shard_optimizer_states=True,
+                 num_devices_for_pjit=world)
+  opt = shampoo.distributed_shampoo(**options, statistics_partition_spec=spec,
+                                    preconditioner_partition_spec=spec)
+  shards = mesh.shard_group(spec)
+  params, grads = bench_fixture(device)
+  held = {}
+
+  def init():
+    state = opt.init(None).init_fn(params)
+    g = state.stats.global_stats
+    held.update(rows=state_bytes([g.statistics, g.preconditioners]),
+                exponents=state_bytes(g.exponents),
+                local=state_bytes(state.stats.local_stats))
+    check(held["rows"] * world == JAX_SHARDED_ROOT_BYTES,
+          f"(j2) rank {rank}: {held['rows']} B of statistics and roots, not "
+          f"1/{world} of JAX's {JAX_SHARDED_ROOT_BYTES} B")
+    check(held["rows"] * world + held["exponents"] + held["local"] + 4
+          == JAX_SHARDED_STATE_BYTES,
+          f"(j2) rank {rank}: {held} do not add up to JAX's "
+          f"{JAX_SHARDED_STATE_BYTES} B")
+    per = g.statistics.shape[0]
+    return state, _runs_of(g.exponents[rank * per:(rank + 1) * per].tolist())
+
+  kept = []
+
+  def keep(updates, state):
+    _check_accepted("(j2)", [ls.training_metrics
+                             for ls in state.stats.local_stats.values()])
+    full = mesh.all_gather_rows(state.stats.global_stats.preconditioners,
+                                shards)
+    if rank == 0:
+      kept.append(_to_host(updates, [full]))
+
+  run = _timed_dist_steps(f"(j2) rank {rank}", opt, init, params, grads,
+                          keep)
+  del run["state"]
+  out = dict(run, rank=rank, world=world, state_bytes=held)
+  if rank == 0:
+    single = shampoo.distributed_shampoo(**options)
+    out.update(_single_run(single, single.init(None).init_fn, kept))
+  kept.clear()
+  dist.barrier()
+  return out
+
+
+def _log_ranks(label, results):
+  for r in results:
+    log(f"  {label} rank {r['rank']} of {r['world']}: Newton launches "
+        f"{r['launches']} of {r['members']} members a step; step times "
+        f"{[round(t, 3) for t in r['step_ms']]} ms; peak memory of the "
+        f"updates {r['peak_bytes'] / 2**30:.3f} GiB, of which "
+        f"{r['base_bytes'] / 2**30:.3f} GiB were held before the steps"
+        + (f"; state {r['state_bytes']} B" if "state_bytes" in r else ""))
+  first = results[0]
+  log(f"  {label} against one rank: largest root difference "
+      f"{first['max_root_diff']:.3e}, largest update difference "
+      f"{first['max_update_diff']:.3e} (rtol {RTOL}, atol {ATOL}); its "
+      f"step times {[round(t, 3) for t in first['single_step_ms']]} ms")
+  if "gather_ms" in first:
+    log(f"  {label} one all-gather of a rank's p = 4 roots: "
+        f"{[[round(t, 3) for t in r['gather_ms']] for r in results]} ms")
+  check(first["within_tolerance"],
+        f"{label}: the ranks' roots or updates differ from one rank's "
+        f"beyond rtol {RTOL}, atol {ATOL}")
+
+
+def card_name_and_power() -> str:
+  """nvidia-smi's name and power limit of the card."""
+  return subprocess.run(
+      ["nvidia-smi", "--query-gpu=name,power.limit",
+       "--format=csv,noheader"], capture_output=True, text=True, check=True,
+      timeout=60).stdout.strip().splitlines()[0]
+
+
+def phase_distribution():
+  """(j): the batch axis over 2 gloo ranks and over 1 NCCL rank, and the
+  memory-sharded state over 2 gloo ranks, on the one card.  Returns the
+  Newton launches of their runs and the per-rank results."""
+  log(f"(j) distribution on one card: {card_name_and_power()}")
+  launches = 0
+  out = {}
+  for label, fn, world, backend in (
+      ("(j1)", dist_batch_axis_rank, DIST_RANKS, "gloo"),
+      ("(j1) NCCL", dist_batch_axis_rank, 1, "nccl"),
+      ("(j2)", dist_sharded_rank, DIST_RANKS, "gloo")):
+    results = local.run_local_ranks(fn, world, backend=backend,
+                                    timeout=DIST_TIMEOUT_S,
+                                    join_timeout=900.0)
+    _log_ranks(label, results)
+    launches += sum(r["launches"] for r in results)
+    out[label] = results
+  return launches, out
+
+
 def main():
   if not torch.cuda.is_available():
     raise SystemExit("chip_smoke.py needs a CUDA GPU: "
                      "torch.cuda.is_available() is False")
   device = torch.device("cuda", 0)
   pth_root.require_true_f32()
-  build_s = phase_build()
-  max_err, timings, chain, solvers = phase_kernel(device)
-  main_path, f32_updates = phase_main_path(device)
-  reduced = phase_memory_reduced(device, f32_updates,
-                                 main_path["state_bytes"])
+  clock = {}
+  run_start = time.perf_counter()
+
+  def phase(label, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its seconds logged on a line of their own."""
+    start = time.perf_counter()
+    out = fn(*args, **kwargs)
+    clock[label] = time.perf_counter() - start
+    log(f"phase {label} took {clock[label]:.1f} s")
+    return out
+
+  build_s = phase("(a)", phase_build)
+  max_err, timings, chain, solvers = phase("(b)", phase_kernel, device)
+  main_path, f32_updates = phase("(c)", phase_main_path, device)
+  reduced = phase("(c2)", phase_memory_reduced, device, f32_updates,
+                  main_path["state_bytes"])
   del f32_updates
-  log("(c3) Sketchy: frequent_directions with compression_rank=32 on the "
-      "bench fixture")
-  # An FD step's SVD takes seconds (PERF.md), so 2 steps, the second
-  # reading the first's sketch.
-  sketchy = phase_compressed("(c3)", device, 2, frequent_directions=True)
-  sketchy["library_ms"] = linalg_timings(device)
+  def phase_sketchy():
+    log("(c3) Sketchy: frequent_directions with compression_rank=32 on the "
+        "bench fixture")
+    # An FD step's SVD takes seconds (PERF.md), so 2 steps, the second
+    # reading the first's sketch.
+    out = phase_compressed("(c3)", device, 2, frequent_directions=True)
+    out["library_ms"] = linalg_timings(device)
+    return out
+
+  sketchy = phase("(c3)", phase_sketchy)
   log("(c4) low-rank roots: compression_rank=32 on the bench fixture")
-  low_rank = phase_compressed("(c4)", device, 2, frequent_directions=False)
-  sm3_run = phase_sm3(device)
-  tearfree_runs = phase_tearfree(device)
-  tearfree_runs["sketchy"] = phase_tearfree_sketchy(device)
-  phase_trainer(device)
-  probe_launches = phase_probe()
+  low_rank = phase("(c4)", phase_compressed, "(c4)", device, 2,
+                   frequent_directions=False)
+  sm3_run = phase("(g)", phase_sm3, device)
+  tearfree_runs = phase("(h)", phase_tearfree, device)
+  tearfree_runs["sketchy"] = phase("(i)", phase_tearfree_sketchy, device)
+  phase("(d)", phase_trainer, device)
+  probe_launches = phase("(e)", phase_probe)
+  dist_launches, distribution = phase("(j)", phase_distribution)
   log("(f) card")
   tf32 = torch.backends.cuda.matmul.allow_tf32
   check(not tf32, "TF32 matmuls are on")
   log(f"  torch.backends.cuda.matmul.allow_tf32={tf32}; torch "
       f"{torch.__version__}, CUDA {torch.version.cuda}")
-  smi = subprocess.run(
-      ["nvidia-smi", "--query-gpu=name,power.limit",
-       "--format=csv,noheader"], capture_output=True, text=True, check=True,
-      timeout=60).stdout.strip().splitlines()[0]
+  smi = card_name_and_power()
   main = timings["[6144,128,128] p=4"]
   log(json.dumps({"main_path": {"build_s": build_s, **main_path},
                   "memory_reduced": reduced,
                   "sketchy_fd": sketchy, "low_rank": low_rank,
                   "sm3": sm3_run, "tearfree": tearfree_runs,
+                  "distribution": distribution,
                   "newton_root_timings": timings,
                   "per_matrix_solvers": solvers,
-                  "matmul_chain_timing": chain}))
+                  "matmul_chain_timing": chain,
+                  "phase_seconds": clock,
+                  "total_seconds": time.perf_counter() - run_start}))
   log(json.dumps({"kernels": [{
       "name": "newton_root", "route": "cuda", "source": SOURCES["newton_root"],
       "replaces": REPLACES["newton_root"],
       "launches": (main_path["launches"] + reduced["launches"]
                    + tearfree_runs["filtered"]["launches"]
-                   + tearfree_runs["newton"]["launches"]),
+                   + tearfree_runs["newton"]["launches"] + dist_launches),
       "max_abs_err": max_err, "ms": main["ms"], "plain_ms": main["plain_ms"],
       "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
       # No single PyTorch call computes a batched inverse p-th root.
       "library_ms": None, "path": main["path"],
       "driven_by": "distributed_shampoo, 5 steps; the same with "
                    "best_effort_memory_usage_reduction, 5 steps; tearfree "
-                   "filtered and newton, 5 steps each"}, {
+                   "filtered and newton, 5 steps each; (j) the batch axis "
+                   "over 2 gloo ranks, 3 steps, and 1 NCCL rank, 3 steps, "
+                   "and the memory-sharded state over 2 gloo ranks, 3 "
+                   "steps"}, {
       "name": "matmul_chain", "route": "cuda",
       "source": SOURCES["matmul_chain"],
       "replaces": REPLACES["matmul_chain"],

@@ -6,7 +6,8 @@ inverse-root solve as a hand-written CUDA kernel built from
 ``csrc/newton_root.cu`` at first use.  On the CPU every kernel's plain
 PyTorch twin runs instead.  SM3 (`optim/sm3.py`) and the tearfree stack
 (`tearfree/`, whose Newton and filtered roots take the same kernel) are
-here too.  This package imports torch and never JAX; the JAX package
+here too, and so is distribution over `torch.distributed` (`parallel/`,
+`optim/sharded_shampoo.py`).  This package imports torch and never JAX; the JAX package
 beside it is the reference its tests compare against.
 """
 

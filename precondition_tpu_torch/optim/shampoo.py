@@ -32,13 +32,21 @@ frequent-directions sketch (`fd_update_root`, one batched SVD).  Smaller
 blocks keep full roots.  ``lobpcg_topk_precondition`` deflates the full
 roots' statistics first and takes the per-matrix solver.
 
+Distribution (`parallel/mesh.py`): with ``batch_axis_name`` (a
+`torch.distributed.ProcessGroup`, or a string for the default group) or a
+``preconditioner_partition_spec`` made by `parallel.mesh.sharding`, each
+solve group is padded to a multiple of the shard count and every rank of
+the group solves its contiguous slice; one all-gather returns the roots and
+the metrics to every rank.  ``shard_optimizer_states`` keeps statistics and
+roots as one global ``[N, m, m]`` array split over the ranks
+(`optim/sharded_shampoo.py`).
+
 `distributed_shampoo` returns the functional ``init``/``update`` pair with
 the JAX signature; `DistributedShampoo` wraps it as a
 `torch.optim.Optimizer`.  Parameters are a flat dict of name -> tensor
-(`utils.convert.params_from_numpy` flattens a JAX tree into one).
-Distribution and the precision options raise `NotImplementedError` naming
-their ROADMAP.md item.  Frequency gates are host-side ``if``s on the step
-count.
+(`utils.convert.params_from_numpy` flattens a JAX tree into one).  The
+precision options raise `NotImplementedError`.  Frequency gates are
+host-side ``if``s on the step count.
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ from precondition_tpu_torch.ops import lowrank
 from precondition_tpu_torch.ops import pth_root
 from precondition_tpu_torch.ops.kernels import newton_root
 from precondition_tpu_torch.ops.pth_root import RootMetrics
+from precondition_tpu_torch.parallel import mesh as mesh_lib
 from precondition_tpu_torch.utils import diagnostics
 from precondition_tpu_torch.utils import shapes as shape_utils
 from precondition_tpu_torch.utils.quantization import QuantizedValue
@@ -148,6 +157,25 @@ def _not_ported(option: str, item: str):
       f"item {item}")
 
 
+def _all_gather_metrics(metrics: RootMetrics, shards) -> RootMetrics:
+  """Every shard's ``[k]`` metrics, reports included, in shard order:
+  one all-gather of the fields packed as ``[k, fields]``."""
+  leaves = []
+  metrics.map(leaves.append)
+  packed = mesh_lib.all_gather_rows(
+      torch.stack([x.to(torch.float32) for x in leaves], dim=1), shards)
+  columns = iter(packed.unbind(1))
+  return metrics.map(lambda x: next(columns).to(x.dtype))
+
+
+def block_grams(blocks: torch.Tensor, axis: int) -> torch.Tensor:
+  """``G_(a) G_(a)^T`` of each block of a ``[k, *block]`` stack along the
+  block's ``axis``: one `torch.bmm`, ``[k, d, d]``."""
+  flat = blocks.movedim(axis + 1, 1).reshape(blocks.shape[0],
+                                             blocks.shape[axis + 1], -1)
+  return torch.bmm(flat, flat.transpose(1, 2))
+
+
 @functools.lru_cache(maxsize=None)
 def _block_plan(shape, block_size, merge_block_size, best_effort,
                 precond_type):
@@ -225,19 +253,10 @@ class Preconditioner:
                                  ) -> List[torch.Tensor]:
     """EMA ``w1 * S + w2 * G_(a) G_(a)^T`` on the per-axis stacks."""
     reshaped = grad.reshape(self._transformed_shape)
-    uniform = self._partitioner.uniform_block_shape()
     gs_all = self._partitioner.partition_stacked(reshaped)
-    nb = gs_all.shape[0]
-    new_stats = []
-    slot = 0
-    for axis, on in enumerate(self._precond_dims):
-      if not on:
-        continue
-      flat = gs_all.movedim(axis + 1, 1).reshape(nb, uniform[axis], -1)
-      grams = torch.bmm(flat, flat.transpose(1, 2))
-      new_stats.append(w1 * stats[slot] + w2 * grams)
-      slot += 1
-    return new_stats
+    axes = [a for a, on in enumerate(self._precond_dims) if on]
+    return [w1 * s + w2 * block_grams(gs_all, axis)
+            for s, axis in zip(stats, axes)]
 
   def preconditioned_grad_stacked(self, grad, preconditioners
                                   ) -> torch.Tensor:
@@ -254,6 +273,34 @@ class Preconditioner:
     merged = self._partitioner.merge_stacked(g)
     return merged.reshape(self._original_shape)
 
+  def block_groups(self, grad, first: int, last: int):
+    """The blocks of the statistics ``[first, last)`` (the legacy layout's
+    block-major order), grouped by (block shape, axis): yields ``(shape,
+    axis, statistic indices, [k, *shape] blocks)``."""
+    reshaped = grad.reshape(self._transformed_shape)
+    axes = [a for a, on in enumerate(self._precond_dims) if on]
+    uniform = self._partitioner.uniform_block_shape()
+    if uniform is not None:
+      # One reshape-permute blockifies every block; the groups are the axes,
+      # each over a run of consecutive blocks.
+      gs = self._partitioner.partition_stacked(reshaped)
+      for slot, axis in enumerate(axes):
+        lo = max(-(-(first - slot) // len(axes)), 0)
+        hi = -(-(last - slot) // len(axes))
+        if lo < hi:
+          yield (uniform, axis, [b * len(axes) + slot for b in range(lo, hi)],
+                 gs[lo:hi])
+      return
+    blocks = self._partitioner.partition(reshaped)
+    groups: Dict[tuple, List[Tuple[int, int]]] = {}
+    for i in range(first, last):
+      b, slot = divmod(i, len(axes))
+      groups.setdefault((tuple(blocks[b].shape), axes[slot]), []).append(
+          (i, b))
+    for (shape, axis), members in groups.items():
+      yield (shape, axis, [i for i, _ in members],
+             torch.stack([blocks[b] for _, b in members]))
+
   def statistics_from_grad(self, grad) -> List[torch.Tensor]:
     """Fresh (unweighted) Gram statistics ``G_(a) G_(a)^T`` per block/axis."""
     reshaped = grad.reshape(self._transformed_shape)
@@ -264,17 +311,6 @@ class Preconditioner:
           contracted = [i for i in range(g.dim()) if i != axis]
           out.append(torch.tensordot(g, g, dims=(contracted, contracted)))
     return out
-
-  def _block_groups(self, blocks):
-    """``{(block shape, axis): [(statistic index, block index), ...]}``."""
-    groups: Dict[tuple, List[Tuple[int, int]]] = {}
-    index = 0
-    for b, g in enumerate(blocks):
-      for axis, on in enumerate(self._precond_dims):
-        if on:
-          groups.setdefault((tuple(g.shape), axis), []).append((index, b))
-          index += 1
-    return groups
 
   def updated_statistics_from_grad(self, stats, grad, w1, w2,
                                    to_float=_stack, from_float=_unstack,
@@ -287,33 +323,16 @@ class Preconditioner:
     gradient's Cholesky factors instead, one batched QR for the group
     (`ops.lowrank.frequent_directions_update`).
     """
-    reshaped = grad.reshape(self._transformed_shape)
-    uniform = self._partitioner.uniform_block_shape()
-    if uniform is not None:
-      # One reshape-permute blockifies every block; the groups are the axes.
-      gs = self._partitioner.partition_stacked(reshaped)
-      n_on = sum(self._precond_dims)
-      groups = {(uniform, axis): [(b * n_on + slot, b)
-                                  for b in range(gs.shape[0])]
-                for slot, axis in enumerate(
-                    a for a, on in enumerate(self._precond_dims) if on)}
-      take = lambda members: gs
-    else:
-      blocks = self._partitioner.partition(reshaped)
-      groups = self._block_groups(blocks)
-      take = lambda members: torch.stack([blocks[b] for _, b in members])
     new_stats = [None] * len(stats)
-    for (shape, axis), members in groups.items():
-      gs_group = take(members)
+    for shape, axis, members, gs_group in self.block_groups(grad, 0,
+                                                            len(stats)):
       if frequent_directions and lowrank.should_compress(
           self._compression_rank, shape[axis]):
         news = lowrank.frequent_directions_update(gs_group, axis)
       else:
-        flat = gs_group.movedim(axis + 1, 1).reshape(len(members),
-                                                     shape[axis], -1)
-        grams = torch.bmm(flat, flat.transpose(1, 2))
-        news = w1 * to_float([stats[i] for i, _ in members]) + w2 * grams
-      for (i, _), new in zip(members, from_float(news)):
+        news = (w1 * to_float([stats[i] for i in members])
+                + w2 * block_grams(gs_group, axis))
+      for i, new in zip(members, from_float(news)):
         new_stats[i] = new
     return new_stats
 
@@ -426,28 +445,39 @@ def distributed_shampoo(
   cannot (``eigh=True``, LOBPCG, statistics larger than
   `newton_root.MAX_M`).  Compressed roots take their eigensolvers
   (`ops/lowrank.py`) whatever the backend.
+
+  Distribution options (JAX's semantics; one rank and none of them is the
+  single-device path):
+    batch_axis_name: a `torch.distributed.ProcessGroup`, or any string for
+      the default group (JAX's name names the mapped axis, which in a torch
+      job is the job's ranks).  Each solve group is padded to a multiple of
+      the group's size, rank r solves the r-th slice, and one all-gather
+      returns roots and metrics to every rank.
+    statistics_partition_spec / preconditioner_partition_spec: a
+      `parallel.mesh.Sharding`.  With a mesh, the solve splits over the
+      group of the preconditioner spec's leading axes (JAX's ``shard_map``
+      branch); a spec without a mesh or without an axis solves the whole
+      batch on every rank (JAX's ``with_sharding_constraint`` branch, the
+      same numbers).
+    num_devices_for_pjit: pad each solve group to a multiple of this
+      (default: the spec's shard count).
+    shard_optimizer_states: the memory-sharded state of
+      `optim/sharded_shampoo.py`; ``init(None)`` returns its
+      `InitFnState`, whose ``init_fn(params)`` builds this rank's slice.
   """
-  unported = [
-      (batch_axis_name is not None, "batch_axis_name", "8 (distribution)"),
-      (statistics_partition_spec is not None
-       or preconditioner_partition_spec is not None,
-       "statistics/preconditioner partition specs", "8 (distribution)"),
-      (num_devices_for_pjit not in (None, 1), "num_devices_for_pjit",
-       "8 (distribution)"),
-      (shard_optimizer_states, "shard_optimizer_states", "8 (distribution)"),
-      (precision is not None or tensordot_precision is not None,
-       "precision options (products always run in true f32)",
-       "5a (refused: every product runs in true f32)"),
-  ]
-  for flag, option, item in unported:
-    if flag:
-      raise _not_ported(option, item)
+  if precision is not None or tensordot_precision is not None:
+    raise _not_ported("precision options (products always run in true f32)",
+                      "5a (refused: every product runs in true f32)")
   if solver_backend not in ("auto", "pallas", "xla"):
     raise ValueError(f"unknown solver_backend {solver_backend!r}")
   if clip_by_scaled_gradient_norm is not None and graft_type not in (
       GraftingType.RMSPROP, GraftingType.RMSPROP_NORMALIZED):
     raise ValueError(
         "clip_by_scaled_gradient_norm only applies to RMSProp grafting.")
+  if batch_axis_name and statistics_partition_spec is not None:
+    raise ValueError(
+        "Use either batch_axis_name (mapped) or partition specs (jit+mesh), "
+        "not both.")
   if frequent_directions and compression_rank <= 0:
     raise ValueError(
         "frequent_directions requires a positive compression_rank.")
@@ -460,22 +490,48 @@ def distributed_shampoo(
     reset_frequency = (int(np.round(1.0 / (1.0 - beta2)))
                        if beta2 != 1.0 else None)
     beta2 = 1.0
+  if shard_optimizer_states and compression_rank:
+    raise ValueError(
+        "compression is not supported in the memory-sharded mode.")
   # As in JAX, generate_fd_metrics is silently off without FD.
   generate_detailed_metrics = (generate_detailed_metrics
                                and generate_training_metrics)
   generate_fd_metrics = (generate_fd_metrics and generate_training_metrics
                          and frequent_directions)
+  if shard_optimizer_states and (generate_detailed_metrics
+                                 or generate_fd_metrics):
+    raise ValueError(
+        "detailed/FD diagnostics are not supported in the memory-sharded "
+        "mode; scrape them from the default (replicated-metrics) mode.")
   if delayed_preconditioning and frequent_directions:
     raise ValueError(
         "delayed_preconditioning cannot compose with frequent_directions: "
         "the FD solve consumes each gradient factor exactly once, and the "
         "delay would feed it the factor a second time.")
+  if delayed_preconditioning and shard_optimizer_states:
+    raise ValueError(
+        "the memory-sharded mode already applies roots one step delayed "
+        "(it transforms with the carried roots before solving); "
+        "delayed_preconditioning only applies to the default mode.")
 
   graft_has_diag_stats = graft_type in (
       GraftingType.ADAGRAD, GraftingType.RMSPROP,
       GraftingType.RMSPROP_NORMALIZED, GraftingType.ADAGRAD_NORMALIZED)
   w2_ema = beta2 if beta2 == 1.0 else 1.0 - beta2
   quantized = best_effort_memory_usage_reduction
+  # A spec with a mesh carries the padding multiple its split needs.
+  inferred_num_shards = (mesh_lib.shard_count(preconditioner_partition_spec)
+                         or mesh_lib.shard_count(statistics_partition_spec))
+
+  def _solve_shards() -> Optional[mesh_lib.ShardGroup]:
+    """The ranks that split each solve group, or None: resolved at each
+    solve, so the process group may be made after the optimizer."""
+    if batch_axis_name:
+      return mesh_lib.process_group_shards(
+          None if isinstance(batch_axis_name, str) else batch_axis_name)
+    if statistics_partition_spec is not None:
+      return mesh_lib.shard_group(preconditioner_partition_spec)
+    return None
 
   def preconditioner_from_params(param) -> Preconditioner:
     return Preconditioner(param, block_size, merge_small_dims_block_size,
@@ -652,6 +708,25 @@ def distributed_shampoo(
         relative_matrix_epsilon=relative_matrix_epsilon, decay=beta2,
         padding_starts=pads, generate_fd_metrics=generate_fd_metrics)
 
+  def _distributed_solve(solve, stats, pads, prevs, shards):
+    """``solve(stats, pads, prevs)`` split over ``shards``: this rank
+    solves its contiguous slice of the batch, then one all-gather of the
+    roots and one of the packed metrics return the whole batch in order.
+    A spec's batch that the shard count does not divide is solved whole on
+    every rank, as JAX's resharding branch computes it."""
+    n = stats.shape[0]
+    if shards is None or (not batch_axis_name and n % shards.size):
+      return solve(stats, pads, prevs)
+    if n % shards.size:
+      raise ValueError(f"a solve batch of {n} does not split over "
+                       f"{shards.size} ranks")
+    per = n // shards.size
+    rows = slice(shards.index * per, (shards.index + 1) * per)
+    roots, metrics = solve(stats[rows], pads[rows],
+                           None if prevs is None else prevs[rows])
+    return (mesh_lib.all_gather_rows(roots, shards),
+            _all_gather_metrics(metrics, shards))
+
   def _perform_solve(step) -> bool:
     """The root-recompute gate, with the JAX package's decaying interval
     (`preconditioning_compute_steps_schedule`) in f32 when scheduled."""
@@ -721,6 +796,9 @@ def distributed_shampoo(
 
     max_size = max(c.d for c in chunks)
     width = lowrank.precond_dim(compression_rank, max_size)
+    shards = _solve_shards()
+    num_shards = (shards.size if batch_axis_name
+                  else num_devices_for_pjit or inferred_num_shards or 1)
     groups: Dict[tuple, List[int]] = {}
     for ci, c in enumerate(chunks):
       groups.setdefault((c.exp, c.mode), []).append(ci)
@@ -758,10 +836,28 @@ def distributed_shampoo(
         pad = pad_packed if mode == "fd" else functools.partial(
             shape_utils.pad_square_stack, max_size=max_size)
         prevs = torch.cat([pad(o) for o in olds])
-      roots, metrics = _solve_group(mode, exp, grp, pads, prevs, step)
+      # Fillers pad the group to the shard count: identities (pads 0) for
+      # the full and low-rank solvers, zeros for FD; identity warm starts,
+      # zero packed sketches.  Their metrics are cut off after the solve.
+      total_k = grp.shape[0]
+      to_pad = (-total_k) % num_shards
+      if to_pad:
+        fill = grp.new_zeros((to_pad, max_size, max_size))
+        if mode != "fd":
+          fill += torch.eye(max_size, device=grp.device)
+        grp = torch.cat([grp, fill])
+        pads = torch.cat([pads, pads.new_zeros(to_pad)])
+        if prevs is not None:
+          prevs = torch.cat([prevs, prevs.new_zeros((to_pad, max_size, width))
+                             if mode == "fd" else fill])
+      roots, metrics = _distributed_solve(
+          lambda s, d, w: _solve_group(mode, exp, s, d, w, step),
+          grp, pads, prevs, shards)
+      if to_pad:
+        metrics = metrics.map(lambda x: x[:total_k])
       if generate_detailed_metrics or generate_fd_metrics:
         metrics = metrics.fill(RootMetrics.zeros(
-            grp.shape[0], generate_detailed_metrics, generate_fd_metrics,
+            total_k, generate_detailed_metrics, generate_fd_metrics,
             grp.device))
       off = 0
       for ci, c in zip(cids, cs):
@@ -922,12 +1018,40 @@ def distributed_shampoo(
                                                    step)
     return updates, ShampooState(count=step + 1, stats=new_stats)
 
+  if shard_optimizer_states:
+    from precondition_tpu_torch.optim import sharded_shampoo
+
+    init_fn_state, sharded_update_fn = sharded_shampoo.make_sharded_fns(
+        preconditioner_from_params=preconditioner_from_params,
+        skip_preconditioning=_skip_preconditioning,
+        transform_grad=_transform_grad,
+        solve_batched=_solve_batched,
+        graft_has_diag_stats=graft_has_diag_stats,
+        matrix_epsilon=matrix_epsilon,
+        beta2=beta2,
+        statistics_compute_steps=statistics_compute_steps,
+        exponent_override=exponent_override,
+        statistics_partition_spec=statistics_partition_spec,
+        num_devices_for_pjit=num_devices_for_pjit,
+        preconditioning_compute_steps=preconditioning_compute_steps,
+        inverse_failure_threshold=inverse_failure_threshold,
+        generate_training_metrics=generate_training_metrics,
+        reuse_preconditioner=reuse_preconditioner,
+    )
+    return GradientTransformation(init_fn_state, sharded_update_fn)
+
   return GradientTransformation(init_fn, update_fn)
 
 
 def state_to_tree(state: ShampooState) -> dict:
   """The state as nested dicts and lists of tensors and plain values, the
-  form `torch.save` keeps and `torch.load(weights_only=True)` reads."""
+  form `torch.save` keeps and `torch.load(weights_only=True)` reads; a
+  memory-sharded state keeps this rank's rows
+  (`sharded_shampoo.state_to_tree`)."""
+  if not isinstance(state.stats, dict):
+    from precondition_tpu_torch.optim import sharded_shampoo
+    return sharded_shampoo.state_to_tree(state)
+
   def leaf(x):
     if isinstance(x, QuantizedValue):
       return {"quantized": x.quantized, "diagonal": x.diagonal,
@@ -957,6 +1081,9 @@ def state_to_tree(state: ShampooState) -> dict:
 
 def state_from_tree(tree: dict, device=None) -> ShampooState:
   """Inverse of `state_to_tree`; tensors move to ``device`` when given."""
+  if tree.get("sharded"):
+    from precondition_tpu_torch.optim import sharded_shampoo
+    return sharded_shampoo.state_from_tree(tree, device)
   move = lambda t: t if t is None or device is None else t.to(device)
 
   def leaf(x):
@@ -998,7 +1125,10 @@ class DistributedShampoo(torch.optim.Optimizer):
   `distributed_shampoo`.  Every parameter needs a gradient at
   every step.  The Shampoo state lives in ``self.shampoo_state``;
   `state_dict` carries it under ``"shampoo_state"`` (see `state_to_tree`)
-  and `load_state_dict` restores it onto the parameters' device.
+  and `load_state_dict` restores it onto the parameters' device.  With
+  ``shard_optimizer_states`` the state is built by the sharded mode's
+  ``init(None).init_fn`` and holds this rank's rows, and so does
+  `state_dict`.
   """
 
   def __init__(self, params, lr: float, **kwargs):
@@ -1018,8 +1148,10 @@ class DistributedShampoo(torch.optim.Optimizer):
 
     self._transform = distributed_shampoo(learning_rate=learning_rate,
                                           **kwargs)
-    self.shampoo_state = self._transform.init(
-        {n: p.detach() for n, p in self._named.items()})
+    init = self._transform.init
+    if kwargs.get("shard_optimizer_states"):
+      init = init(None).init_fn
+    self.shampoo_state = init({n: p.detach() for n, p in self._named.items()})
 
   def state_dict(self):
     out = super().state_dict()

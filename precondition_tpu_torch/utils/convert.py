@@ -10,7 +10,13 @@ report of the metrics (LOBPCG, the residuals of the root and of the
 deflated problem, FD); a report JAX masks is None in the port.  SM3 and
 tearfree states travel too (`sm3_state_from_numpy`,
 `tearfree_state_from_numpy` and their inverses), so that a run can start
-in JAX and continue in the port.
+in JAX and continue in the port, and so does the memory-sharded state
+(`sharded_state_from_numpy` takes one rank's rows of JAX's global arrays,
+`sharded_state_to_numpy` joins the ranks' rows back).
+
+Every ``*_from_numpy`` builds its tensors on the card (``device="cuda"``)
+unless the caller names another device, and raises where there is no card
+and none was named.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import numpy as np
 import torch
 
 from precondition_tpu_torch.ops.pth_root import REPORTS, RootMetrics
+from precondition_tpu_torch.optim import sharded_shampoo
 from precondition_tpu_torch.optim import sm3
 from precondition_tpu_torch.optim.shampoo import ParameterStats, ShampooState
 from precondition_tpu_torch.tearfree import grafting as tf_grafting
@@ -49,6 +56,16 @@ def _map_like(tree, fn, prefix=""):
     return {key: _map_like(value, fn, f"{prefix}{key}/")
             for key, value in tree.items()}
   return fn(prefix[:-1], tree)
+
+
+def _device(device) -> torch.device:
+  """``device`` as a `torch.device`; a CUDA one must exist."""
+  device = torch.device(device)
+  if device.type == "cuda" and not torch.cuda.is_available():
+    raise RuntimeError(
+        "no CUDA device: the converters build on the card by default; pass "
+        "device='cpu' to build on the CPU")
+  return device
 
 
 def _tensor(x, device):
@@ -115,17 +132,19 @@ def _metrics_to_numpy(m: RootMetrics, like):
   return out
 
 
-def params_from_numpy(tree, device=None) -> Dict[str, torch.Tensor]:
+def params_from_numpy(tree, device="cuda") -> Dict[str, torch.Tensor]:
   """A (nested-dict) tree of numpy arrays as the port's flat tensor dict."""
+  device = _device(device)
   return {path: _tensor(leaf, device) for path, leaf in _flatten(tree)}
 
 
-def state_from_numpy(state, device=None) -> ShampooState:
+def state_from_numpy(state, device="cuda") -> ShampooState:
   """A JAX `ShampooState` with numpy leaves as the port's state.
 
   Stacked ``[nb, d, d]`` and legacy per-block entries keep their layout;
   `QuantizedValue` leaves become the port's.
   """
+  device = _device(device)
   stats = {}
   for path, ps in _flatten(state.stats):
     diag = ps.diagonal_statistics
@@ -175,8 +194,73 @@ def state_to_numpy(state: ShampooState, like):
       stats=_map_like(like.stats, convert))
 
 
-def sm3_state_from_numpy(state, device=None) -> sm3.SM3State:
+def sharded_state_from_numpy(state, rank: int, world_size: int,
+                             device="cuda") -> ShampooState:
+  """This rank's port state from a JAX memory-sharded `ShampooState` with
+  numpy leaves: rows ``[rank N/k, (rank+1) N/k)`` of the global statistics
+  and roots (``k = world_size``, the shard count of the statistics spec,
+  ``rank`` this process's shard), every exponent, and the replicated
+  per-parameter stats."""
+  device = _device(device)
+  g = state.stats.global_stats
+  n = np.shape(g.statistics)[0]
+  if n % world_size:
+    raise ValueError(f"{n} global rows do not split over {world_size} ranks")
+  rows = slice(rank * (n // world_size), (rank + 1) * (n // world_size))
+  local = {}
+  for path, ls in _flatten(state.stats.local_stats):
+    diag = ls.diagonal_statistics
+    local[path] = sharded_shampoo.LocalShardedParameterStats(
+        None if isinstance(diag, (list, tuple)) else _tensor(diag, device),
+        _leaf_from_numpy(ls.diagonal_momentum, device),
+        _leaf_from_numpy(ls.momentum, device),
+        _metrics_from_numpy(ls.training_metrics, device),
+        int(ls.index_start), [int(d) for d in ls.sizes])
+  return ShampooState(count=int(state.count), stats=(
+      sharded_shampoo.ShardedShampooStats(
+          sharded_shampoo.GlobalShardedParameterStats(
+              _tensor(np.asarray(g.statistics)[rows], device),
+              _tensor(np.asarray(g.preconditioners)[rows], device),
+              _tensor(g.exponents, device)), local)))
+
+
+def sharded_state_to_numpy(states, like):
+  """The ranks' port states (``states``, in shard order) joined into the
+  structure of a JAX memory-sharded `ShampooState` ``like``: the global
+  rows concatenated, the per-parameter stats from the first rank."""
+  first = states[0].stats
+  cat = lambda field: np.concatenate(
+      [_numpy(getattr(s.stats.global_stats, field)) for s in states])
+
+  def convert(path, like_ls):
+    ls = first.local_stats[path]
+    metrics = like_ls.training_metrics
+    if ls.training_metrics is not None:
+      metrics = _metrics_to_numpy(ls.training_metrics, metrics)
+    return like_ls.replace(
+        diagonal_statistics=(like_ls.diagonal_statistics
+                             if ls.diagonal_statistics is None
+                             else _numpy(ls.diagonal_statistics)),
+        diagonal_momentum=_leaf_to_numpy(ls.diagonal_momentum,
+                                         like_ls.diagonal_momentum),
+        momentum=_leaf_to_numpy(ls.momentum, like_ls.momentum),
+        training_metrics=metrics, index_start=np.int32(ls.index_start),
+        sizes=list(ls.sizes))
+
+  like_g = like.stats.global_stats
+  return like._replace(
+      count=np.asarray(states[0].count, dtype=np.asarray(like.count).dtype),
+      stats=like.stats._replace(
+          global_stats=like_g.replace(
+              statistics=cat("statistics"),
+              preconditioners=cat("preconditioners"),
+              exponents=_numpy(first.global_stats.exponents)),
+          local_stats=_map_like(like.stats.local_stats, convert)))
+
+
+def sm3_state_from_numpy(state, device="cuda") -> sm3.SM3State:
   """A JAX `SM3State` with numpy leaves as the port's state."""
+  device = _device(device)
   return sm3.SM3State(count=int(state.count), stats={
       path: sm3.ParameterStats(
           [_tensor(a, device) for a in ps.diagonal_statistics],
@@ -275,8 +359,9 @@ def _factored_node(node):
   return node
 
 
-def tearfree_state_from_numpy(state, device=None):
+def tearfree_state_from_numpy(state, device="cuda"):
   """A JAX tearfree state with numpy leaves as the port's state."""
+  device = _device(device)
   graft, mom, lr = state
 
   def direction(node):

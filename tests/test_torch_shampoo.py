@@ -72,6 +72,7 @@ from precondition_tpu_torch.ops import lowrank
 from precondition_tpu_torch.ops import pth_root
 from precondition_tpu_torch.ops.kernels import newton_root
 from precondition_tpu_torch.optim import shampoo
+from precondition_tpu_torch.parallel import mesh
 from precondition_tpu_torch.utils import convert
 
 torch.set_num_threads(1)
@@ -120,14 +121,15 @@ def _run_both(steps, seed=0, shapes=_SHAPES, **hypers):
   port_opt = shampoo.distributed_shampoo(**hypers)
   jax_params = jax.tree.map(jnp.asarray, params)
   jax_state = jax_opt.init(jax_params)
-  port_state = convert.state_from_numpy(jax.tree.map(np.asarray, jax_state))
-  port_params = convert.params_from_numpy(params)
+  port_state = convert.state_from_numpy(jax.tree.map(np.asarray, jax_state),
+                                        device="cpu")
+  port_params = convert.params_from_numpy(params, device="cpu")
   update = jax.jit(jax_opt.update)
   for g in grads:
     jax_upd, jax_state = update(jax.tree.map(jnp.asarray, g), jax_state,
                                 jax_params)
-    port_upd, port_state = port_opt.update(convert.params_from_numpy(g),
-                                           port_state, port_params)
+    port_upd, port_state = port_opt.update(
+        convert.params_from_numpy(g, device="cpu"), port_state, port_params)
     yield (jax.tree.map(np.asarray, jax_upd),
            jax.tree.map(np.asarray, jax_state), port_upd, port_state)
 
@@ -448,12 +450,45 @@ def test_statistic_above_the_kernels_limit_takes_the_batched_solver(
   assert float(state.stats["w"].training_metrics.error.max()) < 0.1
 
 
-@pytest.mark.parametrize("option", [
-    dict(batch_axis_name="batch"), dict(shard_optimizer_states=True),
-    dict(num_devices_for_pjit=2), dict(precision="highest"),
-])
+@pytest.mark.parametrize("name", [
+    "params_from_numpy", "state_from_numpy", "sharded_state_from_numpy",
+    "sm3_state_from_numpy", "tearfree_state_from_numpy"])
+def test_converters_build_on_the_card_by_default(monkeypatch, name):
+  """Without a device a converter builds on the card, and where there is
+  none it raises; it never drops to the CPU unasked."""
+  monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+  args = {"params_from_numpy": ({"w": np.zeros(2, np.float32)},),
+          "sharded_state_from_numpy": (None, 0, 1)}.get(name, (None,))
+  with pytest.raises(RuntimeError, match="no CUDA device"):
+    getattr(convert, name)(*args)
+  assert convert.params_from_numpy(
+      {"w": np.zeros(2, np.float32)}, device="cpu")["w"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("option", [dict(precision="highest")])
 def test_unported_options_raise(option):
   with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    shampoo.distributed_shampoo(learning_rate=0.1, **option)
+
+
+@pytest.mark.parametrize("option", [
+    dict(batch_axis_name="batch", statistics_partition_spec=("d",)),
+    dict(shard_optimizer_states=True, compression_rank=4),
+    dict(shard_optimizer_states=True, generate_detailed_metrics=True),
+    dict(shard_optimizer_states=True, delayed_preconditioning=True),
+], ids=["batch-axis-and-specs", "sharded-compression",
+        "sharded-detailed-metrics", "sharded-delayed"])
+def test_distribution_refusals_raise(option):
+  """JAX's four refusals of distribution options
+  (precondition_tpu/optim/shampoo.py:514-555) raise in both packages."""
+  jax_option = dict(option)
+  if "statistics_partition_spec" in option:
+    jax_option["statistics_partition_spec"] = jax.sharding.PartitionSpec("d")
+    option = dict(option, statistics_partition_spec=mesh.Sharding(None,
+                                                                  ("d",)))
+  with pytest.raises(ValueError):
+    jax_shampoo.distributed_shampoo(learning_rate=0.1, **jax_option)
+  with pytest.raises(ValueError):
     shampoo.distributed_shampoo(learning_rate=0.1, **option)
 
 
@@ -488,7 +523,7 @@ def test_option_validation_matches_jax(option):
   opt = shampoo.distributed_shampoo(learning_rate=0.1, **option)
   shapes = {"w": (8, 6)}
   ref = convert.state_from_numpy(jax.tree.map(np.asarray, jax_opt.init(
-      _tree(lambda s: jnp.ones(s, jnp.float32), shapes))))
+      _tree(lambda s: jnp.ones(s, jnp.float32), shapes))), device="cpu")
   ours = opt.init({"w": torch.ones(8, 6)})
   ps_r, ps_o = ref.stats["w"], ours.stats["w"]
   assert (ps_o.avg_grad is None) == (ps_r.avg_grad is None)
@@ -653,9 +688,9 @@ def test_state_round_trip():
       **_HYPERS, graft_type=jax_shampoo.GraftingType.RMSPROP)
   jax_state = jax.tree.map(np.asarray,
                            jax_opt.init(jax.tree.map(jnp.asarray, params)))
-  port_state = convert.state_from_numpy(jax_state)
+  port_state = convert.state_from_numpy(jax_state, device="cpu")
   again = convert.state_from_numpy(
-      convert.state_to_numpy(port_state, jax_state))
+      convert.state_to_numpy(port_state, jax_state), device="cpu")
   for name, ps in port_state.stats.items():
     other = again.stats[name]
     for a, b in zip(ps.statistics + ps.preconditioners,
@@ -681,9 +716,9 @@ def test_legacy_state_round_trip(hypers):
       **{**_HYPERS, **hypers}, graft_type=jax_shampoo.GraftingType.RMSPROP)
   jax_params = jax.tree.map(jnp.asarray, params)
   jax_state = jax.tree.map(np.asarray, jax_opt.init(jax_params))
-  port_state = convert.state_from_numpy(jax_state)
+  port_state = convert.state_from_numpy(jax_state, device="cpu")
   back = convert.state_to_numpy(port_state, jax_state)
-  again = convert.state_from_numpy(back)
+  again = convert.state_from_numpy(back, device="cpu")
   for a, b in zip(_tensors(shampoo.state_to_tree(port_state)),
                   _tensors(shampoo.state_to_tree(again)), strict=True):
     assert torch.equal(a, b)

@@ -93,12 +93,12 @@ def test_sketchy_matches_jax(name):
   shapes = _EKFAC_SHAPES if options.get("ekfac_svd") else _SHAPES
   params = _tree(lambda s: np.zeros(s, np.float32), shapes)
   js = jax_tx.init(jax.tree.map(jnp.asarray, params))
-  ts = port_tx.init(convert.params_from_numpy(params))
+  ts = port_tx.init(convert.params_from_numpy(params, device="cpu"))
   update = jax.jit(jax_tx.update)
   for step in range(4):
     g = _tree(lambda s: rng.randn(*s).astype(np.float32), shapes)
     ju, js = update(jax.tree.map(jnp.asarray, g), js)
-    tu, ts = port_tx.update(convert.params_from_numpy(g), ts)
+    tu, ts = port_tx.update(convert.params_from_numpy(g, device="cpu"), ts)
     assert ts.count == int(js.count)
     for path, want in convert._flatten(jax.tree.map(np.asarray, ju)):
       np.testing.assert_allclose(tu[path].numpy(), want, rtol=1e-3,

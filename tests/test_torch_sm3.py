@@ -63,7 +63,7 @@ def test_sm3_steps_match_jax(name):
   grads = [_tree(rng) for _ in range(5)]
   jax_tx, port_tx = jax_sm3.sm3(**options), sm3.sm3(**options)
   jax_params = jax.tree.map(jnp.asarray, params)
-  port_params = convert.params_from_numpy(params)
+  port_params = convert.params_from_numpy(params, device="cpu")
   jax_state, port_state = jax_tx.init(jax_params), port_tx.init(port_params)
   update = jax.jit(jax_tx.update)
   for step, g in enumerate(grads):
@@ -72,8 +72,8 @@ def test_sm3_steps_match_jax(name):
                             ).max() for n in params}
     jax_upd, jax_state = update(jax.tree.map(jnp.asarray, g), jax_state,
                                 jax_params)
-    port_upd, port_state = port_tx.update(convert.params_from_numpy(g),
-                                          port_state, port_params)
+    port_upd, port_state = port_tx.update(
+        convert.params_from_numpy(g, device="cpu"), port_state, port_params)
     assert port_state.count == int(jax_state.count) == step + 1
     for n in params:
       want = np.asarray(jax_upd[n])
@@ -105,13 +105,14 @@ def test_sm3_update_from_a_jax_state_matches(name):
     _, state = jax_tx.update(jax.tree.map(jnp.asarray, _tree(rng)), state,
                              params)
   numpy_state = jax.tree.map(np.asarray, state)
-  port_state = convert.sm3_state_from_numpy(numpy_state)
+  port_state = convert.sm3_state_from_numpy(numpy_state, device="cpu")
   g = _tree(rng)
   jax_upd, jax_next = jax_tx.update(jax.tree.map(jnp.asarray, g), state,
                                     params)
   port_upd, port_next = port_tx.update(
-      convert.params_from_numpy(g), port_state,
-      convert.params_from_numpy(jax.tree.map(np.asarray, params)))
+      convert.params_from_numpy(g, device="cpu"), port_state,
+      convert.params_from_numpy(jax.tree.map(np.asarray, params),
+                                device="cpu"))
   for n, want in jax_upd.items():
     want = np.asarray(want)
     np.testing.assert_allclose(port_upd[n].numpy(), want, rtol=1e-5,
@@ -132,7 +133,7 @@ def test_sm3_state_round_trips_through_convert():
   _, state = tx.update(jax.tree.map(jnp.asarray, _tree(rng)), state, params)
   numpy_state = jax.tree.map(np.asarray, state)
   back = convert.sm3_state_to_numpy(
-      convert.sm3_state_from_numpy(numpy_state), numpy_state)
+      convert.sm3_state_from_numpy(numpy_state, device="cpu"), numpy_state)
   assert jax.tree.structure(back) == jax.tree.structure(numpy_state)
   for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(numpy_state)):
     np.testing.assert_array_equal(a, b)

@@ -108,17 +108,18 @@ def _run(kwargs, shapes, steps=3, start=0):
   jax_tx = jax_optimizer.tearfree(_schedule, _options(_JAX, **kwargs))
   port_tx = optimizer.tearfree(_schedule, _options(_PORT, **kwargs))
   jp = jax.tree.map(jnp.asarray, params)
-  tp = convert.params_from_numpy(params)
+  tp = convert.params_from_numpy(params, device="cpu")
   js = jax_tx.init(jp)
   update = jax.jit(jax_tx.update)
   grads = _grads(rng, shapes, start + steps)
   for g in grads[:start]:
     _, js = update(jax.tree.map(jnp.asarray, g), js, jp)
-  ts = (convert.tearfree_state_from_numpy(jax.tree.map(np.asarray, js))
+  ts = (convert.tearfree_state_from_numpy(jax.tree.map(np.asarray, js),
+                                              device="cpu")
         if start else port_tx.init(tp))
   for step, g in enumerate(grads[start:]):
     ju, js = update(jax.tree.map(jnp.asarray, g), js, jp)
-    tu, ts = port_tx.update(convert.params_from_numpy(g), ts, tp)
+    tu, ts = port_tx.update(convert.params_from_numpy(g, device="cpu"), ts, tp)
     for n in shapes:
       _assert_close(tu[n].numpy(), ju[n], label=f"step {step} {n}")
   return js, ts
@@ -175,7 +176,8 @@ def test_tearfree_state_round_trips_through_convert(kwargs):
     _, state = tx.update(jax.tree.map(jnp.asarray, g), state, params)
   numpy_state = jax.tree.map(np.asarray, state)
   back = convert.tearfree_state_to_numpy(
-      convert.tearfree_state_from_numpy(numpy_state), numpy_state)
+      convert.tearfree_state_from_numpy(numpy_state, device="cpu"),
+      numpy_state)
   assert jax.tree.structure(back) == jax.tree.structure(numpy_state)
   for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(numpy_state)):
     np.testing.assert_array_equal(a, b)
