@@ -77,6 +77,24 @@ Phases, each of which raises on failure:
       roots half of JAX's global 809,500,672 B, updates and gathered roots
       against a one-rank sharded run; step times per rank, and the peak
       memory of each rank's updates beside the bytes it held before them;
+  (k) the LM of precondition_tpu_torch/models/transformer.py at
+      bench.py's widths (4 layers, d=1024, 16 heads, ff 4096, vocab 8192;
+      68,166,656 parameters, bf16 activations, remat) trained 6 steps on
+      one seeded [8, 1025] batch through train.loop.make_train_step and
+      distributed_shampoo (block 128, RMSProp grafting, roots every step):
+      finite, falling loss; 2 Newton launches a step (72 members at p=2,
+      6,272 at p=4), every root accepted; medians of steps 2-6 of the
+      step, forward+backward and the optimizer's update, tokens/s,
+      train_mfu and the peak; one more step under torch.profiler (the
+      optimizer scopes' host ms, kernel ms, the largest kernels);
+      decode_step at 8 positions against forward; and a small LM (2
+      layers, d=128, block 32, f32) 3 steps on the card against the CPU
+      path;
+  (k2) the LM's data-parallel train step at 2 layers (f32 activations)
+      over 2 gloo ranks on the one card, then 1 NCCL rank, under
+      batch_axis_name and under shard_optimizer_states, 2 steps each:
+      losses and each step's parameter change against one process on the
+      full batch;
   (f) the card's name, power limit and TF32 setting.
 Each phase's seconds are printed on a line of their own ("phase (x) took
 N s").  The line before the last is nvidia-smi's name and power limit, a
@@ -98,6 +116,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from precondition_tpu_torch.models import transformer
 from precondition_tpu_torch.ops import lowrank
 from precondition_tpu_torch.ops import pth_root
 from precondition_tpu_torch.ops.kernels import _build
@@ -114,6 +133,8 @@ from precondition_tpu_torch.tearfree import optimizer as tf_optimizer
 from precondition_tpu_torch.tearfree import second_order as tf_second_order
 from precondition_tpu_torch.tearfree import shampoo as tf_shampoo
 from precondition_tpu_torch.tearfree import sketchy as tf_sketchy
+from precondition_tpu_torch.train import loop
+from precondition_tpu_torch.utils import shapes as shape_utils
 from precondition_tpu_torch.utils.quantization import QuantizedValue
 
 KERNELS = ("newton_root", "matmul_chain")
@@ -737,16 +758,22 @@ def profile_step(opt, state, params, grads, trace_device=True,
   optimizer's ``scopes``, the kernels' device ms in all and the five
   largest by name (None and absent without ``trace_device``), and the
   step's wall ms (inflated by the profiler)."""
+  g = grads()
+  return profile_call(lambda: opt.update(g, state, params), trace_device,
+                      scopes)
+
+
+def profile_call(fn, trace_device=True, scopes=SCOPES):
+  """`profile_step`'s record of one call of ``fn()``."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
-  g = grads()
   torch.cuda.synchronize()
   activities = [ProfilerActivity.CPU]
   if trace_device:
     activities.append(ProfilerActivity.CUDA)
   with profile(activities=activities) as prof:
     start = time.perf_counter()
-    opt.update(g, state, params)
+    fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
   events = prof.key_averages()
@@ -1573,6 +1600,434 @@ def _log_ranks(label, results):
         f"beyond rtol {RTOL}, atol {ATOL}")
 
 
+# Phase (k): the LM trained on the card, at the widths of bench.py's
+# transformer-shaped tree (so its optimizer share compares with (c)'s).
+LM_CONFIG = dict(vocab_size=8192, d_model=1024, n_heads=16, n_layers=4,
+                 d_ff=4096, max_seq_len=1024)
+LM_PARAMS = 68_166_656
+# __graft_entry__.py's options but the learning rate: RMSProp grafting
+# without bias correction first steps 31.6 lr an entry, against kernels of
+# std 1/sqrt(1024).  On this batch the loss climbs at 3e-3 and bounces at
+# 3e-5 and 1e-5; at 3e-6 it falls at every step (PERF.md §6).
+LM_HYPERS = dict(learning_rate=3e-6, block_size=128,
+                 start_preconditioning_step=0,
+                 graft_type=shampoo.GraftingType.RMSPROP)
+LM_BATCH = (8, 1025)
+LM_STEPS = 6
+# Newton members a launch, each step: the 9 norm scales' 72 statistics at
+# p=2; the blocks' 6,144 and pos_embed's 128 at p=4 (the 8192-row
+# embedding and unembedding are grafted only).
+LM_CENSUS = (72, 6272)
+# The H100 SXM's dense bf16 tensor-core rate (NVIDIA's data sheet, 700 W).
+PEAK_BF16_FLOPS = 989e12
+DECODE_POSITIONS = 8
+# tests/test_torch_transformer.py's bf16 tolerance: 2e-2 of the largest
+# logit.
+BF16_ATOL = 2e-2
+# The small LM held to the CPU path, at tests/test_torch_train_loop.py's
+# options and train-step tolerances (f32 activations): losses rtol 1e-5,
+# each step's parameter change rtol 1e-3, atol 1e-4 of its largest entry.
+SMALL_LM = dict(vocab_size=512, d_model=128, n_heads=4, n_layers=2,
+                d_ff=512, max_seq_len=64, dtype=torch.float32)
+SMALL_LM_HYPERS = dict(learning_rate=3e-4, block_size=32,
+                       start_preconditioning_step=0,
+                       graft_type=shampoo.GraftingType.RMSPROP)
+LOSS_RTOL, STEP_RTOL, STEP_ATOL = 1e-5, 1e-3, 1e-4
+
+
+def lm_flops(cfg, tokens: int) -> float:
+  """A training step's operations: 6 N T for the weights' products and 12
+  L t d T for attention's (PaLM's appendix B count)."""
+  n = sum(math.prod(s) for s in transformer.param_shapes(cfg).values())
+  return (6 * n * tokens
+          + 12 * cfg.n_layers * cfg.max_seq_len * cfg.d_model * tokens)
+
+
+def _lm_batch(cfg, shape, seed, device):
+  return {"tokens": torch.randint(
+      0, cfg.vocab_size, shape,
+      generator=torch.Generator().manual_seed(seed)).to(device)}
+
+
+def _timed(tx, spans):
+  """``tx`` whose update records a CUDA event before and after itself into
+  ``spans``."""
+  def update(grads, state, params):
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = tx.update(grads, state, params)
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    spans.append((start, end))
+    return out
+  return shampoo.GradientTransformation(tx.init, update)
+
+
+def lm_decode_check(params, cfg, batch):
+  """`decode_step` over the first positions of two rows against
+  `forward`'s logits there; returns the largest difference."""
+  tokens = batch["tokens"][:2, :DECODE_POSITIONS]
+  with torch.no_grad():
+    full = transformer.forward(params, tokens, cfg)
+  caches = transformer.init_cache(cfg, 2, max_len=DECODE_POSITIONS,
+                                  device=tokens.device)
+  worst = 0.0
+  for pos in range(DECODE_POSITIONS):
+    logits, caches = transformer.decode_step(params, caches, tokens[:, pos],
+                                             pos, cfg)
+    worst = max(worst, float((logits - full[:, pos]).abs().max()))
+  bound = BF16_ATOL * float(full.abs().max())
+  check(worst <= bound, f"(k) decode differs from forward by {worst} > "
+        f"{bound}")
+  return worst, bound
+
+
+def lm_card_against_cpu(device):
+  """3 train steps of the small LM on the card and on the CPU path from
+  the same params and batches; returns the largest loss and step
+  differences."""
+  cfg = transformer.TransformerConfig(**SMALL_LM)
+  start = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                  device="cpu")
+  batches = [_lm_batch(cfg, (4, 65), 2 + i, "cpu") for i in range(3)]
+
+  def run(dev):
+    params = {k: v.to(dev, copy=True) for k, v in start.items()}
+    tx = shampoo.distributed_shampoo(**SMALL_LM_HYPERS)
+    state = tx.init(params)
+    step = loop.make_train_step(
+        lambda p, b: transformer.loss_fn(p, b, cfg), tx)
+    out = []
+    for b in batches:
+      before = {k: v.clone() for k, v in params.items()}
+      loss, params, state = step(params, state,
+                                 {k: v.to(dev) for k, v in b.items()})
+      out.append((float(loss), {k: (params[k] - before[k]).cpu()
+                                for k in params}))
+    return out
+
+  loss_diff = step_diff = 0.0
+  for (card_loss, card_step), (cpu_loss, cpu_step) in zip(run(device),
+                                                         run("cpu")):
+    loss_diff = max(loss_diff, abs(card_loss - cpu_loss) / abs(cpu_loss))
+    check(abs(card_loss - cpu_loss) <= LOSS_RTOL * abs(cpu_loss),
+          f"(k) small LM: card loss {card_loss} against CPU {cpu_loss}")
+    for name, want in cpu_step.items():
+      diff = (card_step[name] - want).abs()
+      step_diff = max(step_diff, float(diff.max() / want.abs().max()))
+      check(bool((diff <= STEP_ATOL * want.abs().max()
+                  + STEP_RTOL * want.abs()).all()),
+            f"(k) small LM: {name}'s step on the card differs from the CPU "
+            f"path's by {float(diff.max())}")
+  return loss_diff, step_diff
+
+
+def lm_root_check(state):
+  """The Newton kernel against its twin on the LM's own statistics after
+  its last step: each exponent group stacked as the solve batched it (the
+  params in the state's order, each param's statistics axis-major), with
+  the max_evs that solve used (its metrics' ``max_eigenvalue``), through
+  `compare` (RTOL, ATOL and the true residual).  Returns the largest
+  |kernel - twin| of each group."""
+  groups = {}
+  for ps in state.stats.values():
+    if ps.statistics:
+      stats, evs = groups.setdefault(2 * len(ps.statistics), ([], []))
+      stats.extend(ps.statistics)
+      evs.append(ps.training_metrics.max_eigenvalue)
+  sizes = tuple(sum(s.shape[0] for s in groups[p][0]) for p in sorted(groups))
+  check(sizes == LM_CENSUS, f"(k) statistics groups of {sizes}, expected "
+        f"{LM_CENSUS}")
+  m = max(s.shape[-1] for stats, _ in groups.values() for s in stats)
+  out = {}
+  for p, (stats, evs) in sorted(groups.items()):
+    batch = torch.cat([shape_utils.pad_square_stack(s, m) for s in stats])
+    pads = torch.cat([torch.full((s.shape[0],), s.shape[-1],
+                                 dtype=torch.int32, device=batch.device)
+                      for s in stats])
+    name = f"[{batch.shape[0]},{m},{m}] p={p}"
+    out[name] = compare(f"(k) the LM's statistics {name}",
+                        batch.contiguous(), p, pads=pads,
+                        max_evs=torch.cat(evs).contiguous())[0]
+  return out
+
+
+def phase_lm(device):
+  """(k): the 68.2M-parameter LM trained 6 steps on one fixed batch
+  through `train.loop.make_train_step` and `distributed_shampoo`, roots
+  every step.  Returns its record; the Newton launches are counted from
+  0 over the 6 steps alone, and the kernel is then held to its twin on
+  the last step's statistics."""
+  log(f"(k) the LM trained on the card: {card_name_and_power()}")
+  cfg = transformer.TransformerConfig(**LM_CONFIG)
+  params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                   device=device)
+  n = sum(p.numel() for p in params.values())
+  check(n == LM_PARAMS, f"(k) {n} parameters, not {LM_PARAMS}")
+  batch = _lm_batch(cfg, LM_BATCH, 1, device)
+  tokens = LM_BATCH[0] * (LM_BATCH[1] - 1)
+  starts, spans = [], []
+
+  def loss_fn(p, b):
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    starts.append(start)
+    return transformer.loss_fn(p, b, cfg)
+
+  tx = shampoo.distributed_shampoo(**LM_HYPERS)
+  state = tx.init(params)
+  step = loop.make_train_step(loss_fn, _timed(tx, spans))
+  sizes = _recorded_newton_sizes()
+  losses, step_ms, members = [], [], []
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  newton_root.LAUNCHES = matmul_chain.LAUNCHES = 0
+  for i in range(LM_STEPS):
+    sizes.clear()
+    start = time.perf_counter()
+    loss, params, state = step(params, state, batch)
+    torch.cuda.synchronize()
+    step_ms.append(1e3 * (time.perf_counter() - start))
+    losses.append(float(loss))
+    members.append(sorted(sizes))
+    _check_accepted(f"(k) step {i}", [ps.training_metrics
+                                      for ps in state.stats.values()])
+  launches = newton_root.LAUNCHES
+  peak = torch.cuda.max_memory_allocated()
+  check(all(math.isfinite(x) for x in losses), f"(k) losses {losses}")
+  check(losses[-1] < losses[0], f"(k) the loss did not fall: {losses}")
+  check(all(m == sorted(LM_CENSUS) for m in members),
+        f"(k) Newton batches {members}, expected {sorted(LM_CENSUS)} a step")
+  check(launches == len(LM_CENSUS) * LM_STEPS,
+        f"(k) {launches} Newton launches in {LM_STEPS} steps")
+  check(matmul_chain.LAUNCHES == 0, "(k) the matmul chain ran")
+  fwd_bwd_ms = [s.elapsed_time(e) for s, (e, _) in zip(starts, spans)]
+  opt_ms = [s.elapsed_time(e) for s, e in spans]
+  step_s = float(np.median(step_ms[1:])) / 1e3
+  flops = lm_flops(cfg, tokens)
+  out = dict(
+      losses=losses, step_ms=step_ms, fwd_bwd_ms=fwd_bwd_ms, opt_ms=opt_ms,
+      median_step_ms=1e3 * step_s,
+      median_fwd_bwd_ms=float(np.median(fwd_bwd_ms[1:])),
+      median_opt_ms=float(np.median(opt_ms[1:])), tokens_per_s=tokens / step_s,
+      train_mfu=flops / (step_s * PEAK_BF16_FLOPS),
+      mfu_formula="(6 N T + 12 L t d T) / (step_s * 989e12)",
+      step_flops=flops, peak_bytes=peak, launches=launches,
+      members_per_launch=members[-1])
+  log(f"  losses {[round(x, 4) for x in losses]}")
+  log(f"  medians of steps 2-{LM_STEPS}: step {out['median_step_ms']:.3f} "
+      f"ms (host clock to a synchronize), forward+backward "
+      f"{out['median_fwd_bwd_ms']:.3f} ms, optimizer update "
+      f"{out['median_opt_ms']:.3f} ms (CUDA events); "
+      f"{out['tokens_per_s']:.0f} tokens/s; train_mfu "
+      f"{out['train_mfu']:.4f} = {out['mfu_formula']} with N={LM_PARAMS}, "
+      f"T={tokens}, L={cfg.n_layers}, t={cfg.max_seq_len}, "
+      f"d={cfg.d_model}; peak {peak / 2**30:.3f} GiB")
+  log(f"  Newton launches {launches}: {members[-1]} members a step")
+  out["root_max_diff"] = lm_root_check(state)
+  # One more step under the profiler, after the counts were read.
+  out["profiled_step"] = profile_call(lambda: step(params, state, batch))
+  log(f"  profiled step: {out['profiled_step']}")
+  out["decode_max_diff"], out["decode_bound"] = lm_decode_check(params, cfg,
+                                                                batch)
+  del params, state
+  log(f"  decode_step against forward at {DECODE_POSITIONS} positions: "
+      f"{out['decode_max_diff']:.3e} (bound {out['decode_bound']:.3e})")
+  out["small_loss_diff"], out["small_step_diff"] = lm_card_against_cpu(device)
+  log(f"  small LM, 3 steps, card against the CPU path: loss "
+      f"{out['small_loss_diff']:.3e} relative, steps "
+      f"{out['small_step_diff']:.3e} of the largest entry (rtol {STEP_RTOL}, "
+      f"atol {STEP_ATOL})")
+  return out
+
+
+# Phase (k2): the data-parallel train step on the card at 2 layers (43.0M
+# parameters), f32 activations, held to one process on the full batch in
+# two parts, each at the small LM's tolerances: the ranks' all-reduced
+# gradients against one process's, and the ranks' steps against the
+# one-process optimizer fed the ranks' gradients.  The steps are not held
+# end to end: ranks forward half the batch, which rounds otherwise than
+# the whole, and RMSProp's first steps are sign-like (g / (sqrt(0.001 g^2)
+# + 1e-10) is 31.6 wherever |g| >> 3e-9), so an entry whose gradient sums
+# to about 0 takes its step of either sign.  The end-to-end differences
+# beyond the tolerance are printed beside their gradients.
+LM_DIST_LAYERS = 2
+LM_DIST_STEPS = 2
+
+
+def _lm_dist_modes(world, spec):
+  return {"batch_axis": dict(batch_axis_name="batch"),
+          "sharded": dict(shard_optimizer_states=True,
+                          num_devices_for_pjit=world,
+                          statistics_partition_spec=spec,
+                          preconditioner_partition_spec=spec)}
+
+
+def _recording(tx, record, feed=None):
+  """``tx`` whose update appends the gradients it applies to ``record``:
+  its own, or in their place the next of ``feed``."""
+  def update(grads, state, params):
+    if feed is not None:
+      grads = feed[len(record)]
+    record.append({k: g.detach().clone() for k, g in grads.items()})
+    return tx.update(grads, state, params)
+  return shampoo.GradientTransformation(tx.init, update)
+
+
+def _lm_dist_config():
+  return transformer.TransformerConfig(
+      **dict(LM_CONFIG, n_layers=LM_DIST_LAYERS), dtype=torch.float32)
+
+
+def _lm_one_process(mode, start, batch, feed=None):
+  """(k2)'s optimizer on one process: LM_DIST_STEPS steps on the full
+  batch from ``start`` (the sharded mode's state on one process for the
+  sharded state), fed ``feed``'s gradients where given.  Returns the
+  losses, each step's parameter changes on the host and the gradients
+  applied."""
+  cfg = _lm_dist_config()
+  single = shampoo.distributed_shampoo(
+      **LM_HYPERS, shard_optimizer_states=(mode == "sharded"))
+  params = {k: v.clone() for k, v in start.items()}
+  state = (single.init(None).init_fn(params) if mode == "sharded"
+           else single.init(params))
+  grads = []
+  step = loop.make_train_step(lambda p, b: transformer.loss_fn(p, b, cfg),
+                              _recording(single, grads, feed))
+  losses, deltas = [], []
+  for _ in range(LM_DIST_STEPS):
+    before = {k: v.clone() for k, v in params.items()}
+    loss, params, state = step(params, state, batch)
+    losses.append(float(loss))
+    deltas.append({k: (params[k] - before[k]).cpu() for k in params})
+  return losses, deltas, grads
+
+
+def _outside(got, want):
+  """The entries of ``got`` beyond STEP_ATOL of ``want``'s largest entry
+  plus STEP_RTOL of their own, and the largest difference as a fraction
+  of that largest entry."""
+  diff = (got - want).abs()
+  top = float(want.abs().max())
+  return (diff > STEP_ATOL * top + STEP_RTOL * want.abs(),
+          float(diff.max()) / max(top, 1e-30))
+
+
+def lm_against_one_process(mode, start, batch, losses, deltas, grads):
+  """(k2)'s checks on rank 0: the ranks' losses, all-reduced gradients and
+  steps (``grads``, ``deltas``) against one process's.  Returns the
+  record's fields; ``beyond`` lists, for each step and param whose
+  end-to-end step has entries beyond the tolerance, how many there are,
+  the largest difference as a fraction of the param's largest step
+  entry, and the largest summed gradient among them as a fraction of the
+  param's largest."""
+  one_losses, one_deltas, one_grads = _lm_one_process(mode, start, batch)
+  _, fed_deltas, _ = _lm_one_process(mode, start, batch, feed=grads)
+  loss_diff = max(abs(a - b) / abs(b) for a, b in zip(losses, one_losses))
+  ok = loss_diff <= LOSS_RTOL
+  grad_diff = step_diff = 0.0
+  beyond = []
+  for i in range(LM_DIST_STEPS):
+    for name, got in deltas[i].items():
+      summed = grads[i][name].cpu()
+      bad, diff = _outside(summed, one_grads[i][name].cpu())
+      ok, grad_diff = ok and not bool(bad.any()), max(grad_diff, diff)
+      bad, diff = _outside(got, fed_deltas[i][name])
+      ok, step_diff = ok and not bool(bad.any()), max(step_diff, diff)
+      bad, diff = _outside(got, one_deltas[i][name])
+      if bool(bad.any()):
+        fraction = summed.abs() / summed.abs().max()
+        beyond.append((i + 1, name, int(bad.sum()), diff,
+                       float(fraction[bad].max())))
+  return dict(loss_diff=loss_diff, grad_diff=grad_diff, step_diff=step_diff,
+              beyond=beyond, within_tolerance=ok)
+
+
+def lm_dist_rank(rank, world):
+  """(k2) on one rank: both modes' train steps over a ``(world, 1)`` mesh
+  on the global batch; rank 0 then holds them to one process
+  (`lm_against_one_process`)."""
+  device = torch.device("cuda")
+  pth_root.require_true_f32()
+  cfg = _lm_dist_config()
+  start = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                  device=device)
+  batch = _lm_batch(cfg, LM_BATCH, 1, device)
+  grid = mesh.make_mesh((world, 1), ("data", "model"),
+                        device_type=device.type)
+  modes = _lm_dist_modes(world, mesh.sharding(grid, ("data", "model")))
+  out = dict(rank=rank, world=world, backend=dist.get_backend())
+  for mode, options in modes.items():
+    tx = shampoo.distributed_shampoo(**LM_HYPERS, **options)
+    params = mesh.shard_params({k: v.clone() for k, v in start.items()},
+                               grid, transformer.TP_RULES)
+    state = (tx.init(None).init_fn(params) if mode == "sharded"
+             else tx.init(params))
+    grads = []
+    step = loop.make_sharded_train_step(
+        lambda p, b: transformer.loss_terms(p, b, cfg),
+        _recording(tx, grads), grid, transformer.TP_RULES)
+    newton_root.LAUNCHES = 0
+    losses, times, deltas = [], [], []
+    for _ in range(LM_DIST_STEPS):
+      before = {k: v.clone() for k, v in params.items()}
+      dist.barrier()
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      loss, params, state = step(params, state, batch)
+      torch.cuda.synchronize()
+      times.append(1e3 * (time.perf_counter() - t0))
+      losses.append(float(loss))
+      deltas.append({k: (params[k] - before[k]).cpu() for k in params})
+    del params, state, before
+    record = dict(losses=losses, step_ms=times, launches=newton_root.LAUNCHES)
+    if rank == 0:
+      record.update(lm_against_one_process(mode, start, batch, losses,
+                                           deltas, grads))
+    del grads
+    out[mode] = record
+    torch.cuda.empty_cache()
+    dist.barrier()
+  return out
+
+
+def phase_lm_distribution():
+  """(k2): 2 gloo ranks on the one card, then 1 NCCL rank.  Returns the
+  Newton launches of the ranks' steps and their records."""
+  log(f"(k2) the LM's data-parallel train step: {card_name_and_power()}")
+  launches, out = 0, {}
+  for label, world, backend in (("(k2)", DIST_RANKS, "gloo"),
+                                ("(k2) NCCL", 1, "nccl")):
+    results = local.run_local_ranks(lm_dist_rank, world, backend=backend,
+                                    timeout=DIST_TIMEOUT_S,
+                                    join_timeout=900.0)
+    for mode in ("batch_axis", "sharded"):
+      for r in results:
+        rec = r[mode]
+        log(f"  {label} {mode} rank {r['rank']} of {world}: losses "
+            f"{[round(x, 5) for x in rec['losses']]}, step times "
+            f"{[round(t, 3) for t in rec['step_ms']]} ms, Newton launches "
+            f"{rec['launches']}")
+        launches += rec["launches"]
+      first = results[0][mode]
+      log(f"  {label} {mode} against one process: loss "
+          f"{first['loss_diff']:.3e} relative (rtol {LOSS_RTOL}) on the "
+          f"full batch; all-reduced gradients {first['grad_diff']:.3e} of "
+          f"the largest entry against its gradients, steps "
+          f"{first['step_diff']:.3e} against its optimizer fed the ranks' "
+          f"gradients (rtol {STEP_RTOL}, atol {STEP_ATOL}); end-to-end "
+          "steps beyond that tolerance (step, param, entries, largest "
+          "difference of the largest entry, largest summed gradient among "
+          f"them of the largest): {first['beyond']}")
+      check(first["within_tolerance"],
+            f"{label} {mode}: the ranks' losses or steps differ from one "
+            "process's beyond the tolerance")
+      check(all(r[mode]["losses"] == first["losses"] for r in results),
+            f"{label} {mode}: the ranks' losses differ")
+    out[label] = results
+  return launches, out
+
+
 def card_name_and_power() -> str:
   """nvidia-smi's name and power limit of the card."""
   return subprocess.run(
@@ -1643,6 +2098,8 @@ def main():
   phase("(d)", phase_trainer, device)
   probe_launches = phase("(e)", phase_probe)
   dist_launches, distribution = phase("(j)", phase_distribution)
+  lm = phase("(k)", phase_lm, device)
+  lm_dist_launches, lm_distribution = phase("(k2)", phase_lm_distribution)
   log("(f) card")
   tf32 = torch.backends.cuda.matmul.allow_tf32
   check(not tf32, "TF32 matmuls are on")
@@ -1655,6 +2112,7 @@ def main():
                   "sketchy_fd": sketchy, "low_rank": low_rank,
                   "sm3": sm3_run, "tearfree": tearfree_runs,
                   "distribution": distribution,
+                  "lm_training": lm, "lm_distribution": lm_distribution,
                   "newton_root_timings": timings,
                   "per_matrix_solvers": solvers,
                   "matmul_chain_timing": chain,
@@ -1665,8 +2123,10 @@ def main():
       "replaces": REPLACES["newton_root"],
       "launches": (main_path["launches"] + reduced["launches"]
                    + tearfree_runs["filtered"]["launches"]
-                   + tearfree_runs["newton"]["launches"] + dist_launches),
-      "max_abs_err": max_err, "ms": main["ms"], "plain_ms": main["plain_ms"],
+                   + tearfree_runs["newton"]["launches"] + dist_launches
+                   + lm["launches"] + lm_dist_launches),
+      "max_abs_err": max(max_err, *lm["root_max_diff"].values()),
+      "ms": main["ms"], "plain_ms": main["plain_ms"],
       "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
       # No single PyTorch call computes a batched inverse p-th root.
       "library_ms": None, "path": main["path"],
@@ -1675,7 +2135,10 @@ def main():
                    "filtered and newton, 5 steps each; (j) the batch axis "
                    "over 2 gloo ranks, 3 steps, and 1 NCCL rank, 3 steps, "
                    "and the memory-sharded state over 2 gloo ranks, 3 "
-                   "steps"}, {
+                   "steps; (k) the 68.2M LM trained through "
+                   "train.loop.make_train_step, 6 steps; (k2) its 2-layer "
+                   "data-parallel step over 2 gloo ranks and 1 NCCL rank, "
+                   "the batch axis and the sharded state, 2 steps each"}, {
       "name": "matmul_chain", "route": "cuda",
       "source": SOURCES["matmul_chain"],
       "replaces": REPLACES["matmul_chain"],

@@ -7,8 +7,10 @@ inverse-root solve as a hand-written CUDA kernel built from
 PyTorch twin runs instead.  SM3 (`optim/sm3.py`) and the tearfree stack
 (`tearfree/`, whose Newton and filtered roots take the same kernel) are
 here too, and so is distribution over `torch.distributed` (`parallel/`,
-`optim/sharded_shampoo.py`).  This package imports torch and never JAX; the JAX package
-beside it is the reference its tests compare against.
+`optim/sharded_shampoo.py`), and so are the JAX package's LM
+(`models/transformer.py`), its train loop (`train/loop.py`), examples
+and entry point (`entry.py`).  This package imports torch and never JAX;
+the JAX package beside it is the reference its tests compare against.
 """
 
 __version__ = "0.1.0"

@@ -23,6 +23,7 @@ import socket
 import time
 import traceback
 
+import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
@@ -92,3 +93,11 @@ def run_local_ranks(fn, world_size: int, args=(), backend: str = "gloo",
         p.kill()
         p.join(timeout=10)
   return [out[r] for r in range(world_size)]
+
+
+def backend_for(device: str, world_size: int) -> str:
+  """NCCL where each of ``world_size`` ranks gets a card of its own, else
+  gloo (whose collectives also take CUDA tensors, through the host)."""
+  if device == "cuda" and torch.cuda.device_count() >= world_size:
+    return "nccl"
+  return "gloo"

@@ -14,14 +14,18 @@ and one all-gather (`all_gather_rows`) returns every root to every rank,
 as JAX's ``shard_map`` does.  A `Sharding` without a mesh is a bare spec,
 which splits nothing.
 
-The JAX package's `shard_params` (tensor-parallel rules over parameter
-paths) waits for the model that needs it (ROADMAP.md queue 1, item 13).
+`shard_params` applies rules of parameter names (regex -> spec, the
+model's `TP_RULES`) and places every parameter whole on each rank: the
+port shards batches, not parameters.  A rule that would split a parameter
+over a mesh axis larger than 1 (tensor parallelism) raises
+`NotImplementedError` (ROADMAP.md queue 1, item 13b).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import re
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -155,3 +159,30 @@ def all_gather_rows(x: torch.Tensor, shards: ShardGroup) -> torch.Tensor:
     out = out.view((shards.size,) + tuple(x.shape))[list(shards.order)]
     out = out.flatten(0, 1)
   return out
+
+
+def param_spec(name: str, rules) -> Tuple:
+  """The spec of the first rule whose regex matches ``name`` (searched
+  anywhere in it); ``()``, replicated, where none does."""
+  for pattern, spec in rules:
+    if re.search(pattern, name):
+      return tuple(spec)
+  return ()
+
+
+def shard_params(params, mesh: DeviceMesh, rules):
+  """Places a flat param dict by ``rules`` (name regex -> spec) over
+  ``mesh``: each param whole on this rank's device.  Raises
+  `NotImplementedError` where a rule names a mesh axis larger than 1."""
+  names = mesh.mesh_dim_names
+  for name in params:
+    for entry in param_spec(name, rules):
+      for axis in (entry,) if isinstance(entry, str) else entry or ():
+        if mesh.size(names.index(axis)) > 1:
+          raise NotImplementedError(
+              f"tensor-parallel sharding of parameters ({name!r} over mesh "
+              f"axis {axis!r} of size {mesh.size(names.index(axis))}) is "
+              "not ported to PyTorch yet; see ROADMAP.md queue 1, item 13b")
+  device = torch.device(mesh.device_type)
+  return {name: p if p.device.type == device.type else p.to(device)
+          for name, p in params.items()}

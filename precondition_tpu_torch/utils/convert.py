@@ -2,8 +2,10 @@
 
 Both directions go through numpy, so nothing here imports JAX: a JAX tree
 is handed over as the same tree with numpy leaves
-(``jax.tree.map(np.asarray, tree)``).  Nested dicts flatten to the port's
-flat ``{"a/b": tensor}`` dicts in JAX's flattening order (sorted keys).
+(``jax.tree.map(np.asarray, tree)``).  Nested dicts, lists and tuples
+flatten to the port's flat ``{"a/b": tensor}`` dicts in JAX's flattening
+order (sorted keys, list entries by index: ``blocks/0/attn/qkv``), and
+`params_to_numpy` rebuilds the nested tree.
 Both state layouts travel, as do `QuantizedValue` leaves, packed
 low-rank and frequent-directions roots, the FD gradient average and every
 report of the metrics (LOBPCG, the residuals of the root and of the
@@ -41,20 +43,36 @@ _METRIC_FIELDS = ("error", "iterations", "error_ratio", "max_eigenvalue",
                   "retries")
 
 
+def _is_sequence(tree) -> bool:
+  """A list or plain tuple, whose entries JAX's trees index; a NamedTuple
+  is one of the states' classes here, a leaf."""
+  return isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields")
+
+
 def _flatten(tree, prefix="") -> List[Tuple[str, Any]]:
+  """``(path, leaf)`` pairs in JAX's flattening order: dict keys sorted,
+  list and tuple entries by index (``blocks/0/attn/qkv``)."""
   if isinstance(tree, dict):
-    out = []
-    for key in sorted(tree):
-      out += _flatten(tree[key], f"{prefix}{key}/")
-    return out
-  return [(prefix[:-1], tree)]
+    items = [(key, tree[key]) for key in sorted(tree)]
+  elif _is_sequence(tree):
+    items = list(enumerate(tree))
+  else:
+    return [(prefix[:-1], tree)]
+  out = []
+  for key, value in items:
+    out += _flatten(value, f"{prefix}{key}/")
+  return out
 
 
 def _map_like(tree, fn, prefix=""):
-  """Rebuilds the nested-dict structure of ``tree`` with ``fn(path, leaf)``."""
+  """Rebuilds the nested dict, list and tuple structure of ``tree`` with
+  ``fn(path, leaf)``."""
   if isinstance(tree, dict):
     return {key: _map_like(value, fn, f"{prefix}{key}/")
             for key, value in tree.items()}
+  if _is_sequence(tree):
+    return type(tree)(_map_like(value, fn, f"{prefix}{i}/")
+                      for i, value in enumerate(tree))
   return fn(prefix[:-1], tree)
 
 
@@ -133,9 +151,32 @@ def _metrics_to_numpy(m: RootMetrics, like):
 
 
 def params_from_numpy(tree, device="cuda") -> Dict[str, torch.Tensor]:
-  """A (nested-dict) tree of numpy arrays as the port's flat tensor dict."""
+  """A tree of numpy arrays (nested dicts, lists and tuples) as the port's
+  flat tensor dict."""
   device = _device(device)
   return {path: _tensor(leaf, device) for path, leaf in _flatten(tree)}
+
+
+def params_to_numpy(params: Dict[str, torch.Tensor]):
+  """The port's flat tensor dict as JAX's nested tree of numpy arrays: a
+  level whose keys are the indices ``0..n-1`` becomes a list."""
+  tree = {}
+  for path, value in params.items():
+    *parents, leaf = path.split("/")
+    node = tree
+    for key in parents:
+      node = node.setdefault(key, {})
+    node[leaf] = _numpy(value)
+
+  def lists(node):
+    if not isinstance(node, dict):
+      return node
+    node = {key: lists(value) for key, value in node.items()}
+    if set(node) == {str(i) for i in range(len(node))}:
+      return [node[str(i)] for i in range(len(node))]
+    return node
+
+  return lists(tree)
 
 
 def state_from_numpy(state, device="cuda") -> ShampooState:

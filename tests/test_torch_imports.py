@@ -4,7 +4,8 @@ A fresh interpreter imports every module of `precondition_tpu_torch`,
 `chip_smoke.py`, which runs on a machine without JAX, and
 `tests/torch_ranks.py`, the body of the distribution tests' spawned ranks;
 then none of jax, jaxlib, optax, flax, chex or `precondition_tpu` may be
-loaded.  The distribution modules are among those imported.
+loaded.  The distribution modules, the model, the train loop, the
+examples and the entry point are among those imported.
 """
 
 import pathlib
@@ -18,6 +19,12 @@ _FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "chex", "precondition_tpu")
 _DISTRIBUTION = ("precondition_tpu_torch.parallel.mesh",
                  "precondition_tpu_torch.parallel.local",
                  "precondition_tpu_torch.optim.sharded_shampoo")
+_TRAINING = ("precondition_tpu_torch.models.transformer",
+             "precondition_tpu_torch.train.loop",
+             "precondition_tpu_torch.examples.quickstart",
+             "precondition_tpu_torch.examples.spmd_transformer",
+             "precondition_tpu_torch.examples.tearfree_sketchy",
+             "precondition_tpu_torch.entry")
 
 _SCRIPT = """
 import importlib, pathlib, sys
@@ -46,5 +53,6 @@ def test_port_imports_no_jax():
   modules = list((_ROOT / "precondition_tpu_torch").rglob("*.py"))
   assert count == len(modules) + 2
   assert set(_DISTRIBUTION) <= set(names)
+  assert set(_TRAINING) <= set(names)
   assert loaded == "[]"
   assert precondition_tpu_torch.__name__ == "precondition_tpu_torch"

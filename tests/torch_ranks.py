@@ -167,3 +167,73 @@ def _leaves(tree):
   found = []
   tree_map(found.append, tree)
   return found
+
+
+def train_job(rank, world, job, v0=None):
+  """The LM's data-parallel train step on a ``(world, 1)`` ("data",
+  "model") mesh: ``job["steps"]`` steps of the global batches
+  ``job["batches"]`` (numpy) from ``job["params"]``, once per mode of
+  ``job["modes"]``: "batch_axis" (``batch_axis_name``), "specs" (the
+  solve split by partition specs over both axes) and "sharded"
+  (``shard_optimizer_states`` with those specs).  Per mode: the losses
+  and the final params, as numpy."""
+  from precondition_tpu_torch.models import transformer
+  from precondition_tpu_torch.train import loop
+
+  _setup(v0)
+  cfg = transformer.TransformerConfig(**job["config"])
+  mesh = mesh_lib.make_mesh((world, 1), ("data", "model"), device_type="cpu")
+  spec = mesh_lib.sharding(mesh, ("data", "model"))
+  options = {
+      "batch_axis": dict(batch_axis_name="batch"),
+      "specs": dict(statistics_partition_spec=spec,
+                    preconditioner_partition_spec=spec,
+                    num_devices_for_pjit=world),
+      "sharded": dict(statistics_partition_spec=spec,
+                      preconditioner_partition_spec=spec,
+                      num_devices_for_pjit=world,
+                      shard_optimizer_states=True)}
+  out = {}
+  for mode in job["modes"]:
+    tx = shampoo.distributed_shampoo(**job["hypers"], **options[mode])
+    params = mesh_lib.shard_params(
+        {k: torch.from_numpy(v.copy()) for k, v in job["params"].items()},
+        mesh, transformer.TP_RULES)
+    state = (tx.init(None).init_fn(params) if mode == "sharded"
+             else tx.init(params))
+    step = loop.make_sharded_train_step(
+        lambda p, b: transformer.loss_terms(p, b, cfg), tx, mesh,
+        transformer.TP_RULES)
+    losses = []
+    for batch in job["batches"]:
+      loss, params, state = step(
+          params, state, {k: torch.from_numpy(v) for k, v in batch.items()})
+      losses.append(float(loss))
+    out[mode] = (losses, to_numpy(params))
+  return out
+
+
+def shard_params_job(rank, world):
+  """`shard_params` of the LM's params under its `TP_RULES`: whether over
+  a ``(world, 1)`` mesh every param came back whole and unchanged, and
+  what a ``(1, world)`` mesh raised."""
+  from precondition_tpu_torch.models import transformer
+
+  cfg = transformer.TransformerConfig(vocab_size=16, d_model=8, n_heads=2,
+                                      n_layers=1, d_ff=16, max_seq_len=4)
+  params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                   device="cpu")
+  names = ("data", "model")
+  placed = mesh_lib.shard_params(
+      params, mesh_lib.make_mesh((world, 1), names, device_type="cpu"),
+      transformer.TP_RULES)
+  whole = list(placed) == list(params) and all(
+      torch.equal(placed[n], p) for n, p in params.items())
+  try:
+    mesh_lib.shard_params(
+        params, mesh_lib.make_mesh((1, world), names, device_type="cpu"),
+        transformer.TP_RULES)
+    refused = ""
+  except NotImplementedError as e:
+    refused = f"NotImplementedError: {e}"
+  return whole, refused
